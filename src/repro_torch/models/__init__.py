@@ -1,0 +1,8 @@
+"""Dense decoder model in PyTorch (counterpart of ``repro.models``)."""
+
+from .model import (Model, ModelConfig, build_model, decode_fn, init_cache,
+                    init_params, make_prefill_step, make_serve_step,
+                    prefill_fn)
+
+__all__ = ["Model", "ModelConfig", "build_model", "decode_fn", "init_cache",
+           "init_params", "make_prefill_step", "make_serve_step", "prefill_fn"]

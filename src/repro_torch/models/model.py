@@ -1,0 +1,200 @@
+"""ModelConfig and the model API (counterpart of ``repro/models/model.py``),
+for the dense family:
+
+    init_params(cfg, seed, device)          -> params
+    prefill_fn(cfg, params, batch)          -> (last-token logits, caches)
+    decode_fn(cfg, params, caches, tok, pos)-> (logits, caches)   (one token)
+    init_cache(cfg, batch, max_seq, device) -> zeroed per-layer KV caches
+
+Params are the reference's tree with ``blocks`` a list of per-layer dicts
+(the reference stacks them on a leading axis).  Caches are a list of
+``{"k", "v"}`` tensors of shape ``(B, S, K, hd)``, one per layer.  Other
+families, local-attention windows, attention biases and LayerNorm raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, List, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from . import transformer as T
+from .attention import rope_angles
+from .layers import embed, embedding_init, rmsnorm, rmsnorm_init
+from .paramdecl import normal_param
+
+Params = Dict[str, Any]
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str                   # dense | moe | mla_moe | ssm | hybrid | encdec | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 0             # 0 -> d_model // n_heads
+    dtype: str = "bfloat16"
+    rope_theta: float = 10000.0
+    activation: str = "silu"
+    gated_mlp: bool = True
+    norm: str = "rmsnorm"
+    attn_bias: bool = False
+    tie_embeddings: bool = False
+    # --- MoE
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared_experts: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    aux_loss_coef: float = 0.01
+    # --- MLA (DeepSeek-V2)
+    q_lora: int = 0
+    kv_lora: int = 0
+    qk_nope: int = 128
+    qk_rope: int = 64
+    v_head_dim: int = 128
+    # --- SSM (mamba2)
+    ssm_state: int = 0
+    ssm_expand: int = 2
+    ssm_chunk: int = 128
+    # --- hybrid (recurrentgemma)
+    window: int = 0               # local-attention window (0 = full attention)
+    d_rnn: int = 0
+    # --- encdec (seamless)
+    enc_layers: int = 0
+    dec_layers: int = 0
+    cross_len: int = 0            # encoder length for decode cache (0 = seq)
+    # --- vlm (internvl)
+    n_patches: int = 0
+    # --- compilation / perf knobs of the reference (no effect in the port)
+    layout: str = "v2"
+    serve_layout: str = "v2"
+    serve_fsdp: bool = True
+    remat: str = "full"
+    scan_layers: bool = True
+    attn_chunk: int = 1024
+    loss_chunk: int = 2048
+    grad_accum: int = 1
+    # --- applicability flags
+    sub_quadratic: bool = False
+    decode_supported: bool = True
+
+    def with_(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (dense only)")
+    for unported, name in ((cfg.window, "window"), (cfg.attn_bias, "attn_bias"),
+                           (cfg.norm != "rmsnorm", f"norm={cfg.norm!r}")):
+        if unported:
+            raise NotImplementedError(f"{name} is not ported yet")
+
+
+def torch_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+# -------------------------------------------------------------------- init
+def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
+    """Random parameters from a ``torch.Generator`` seeded with ``seed``."""
+    _check_supported(cfg)
+    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    dt = torch_dtype(cfg)
+    p: Params = {"embed": embedding_init(gen, cfg.vocab, cfg.d_model, dt),
+                 "final_norm": rmsnorm_init(gen, cfg.d_model, dt)}
+    if not cfg.tie_embeddings:
+        p["unembed"] = {"table": normal_param(gen, (cfg.vocab, cfg.d_model), dt,
+                                              scale=0.02)}
+    p["blocks"] = [T.dense_block_init(cfg, gen, dt) for _ in range(cfg.n_layers)]
+    return p
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device
+               ) -> List[Params]:
+    """Zeroed KV caches, ``(batch, max_seq, K, hd)`` per layer."""
+    shape = (batch, max_seq, cfg.n_kv_heads, T.head_dim(cfg))
+    dev = resolve_device(device)
+    return [{"k": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev),
+             "v": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)}
+            for _ in range(cfg.n_layers)]
+
+
+# ----------------------------------------------------------------- forward
+def _last_logits(cfg: ModelConfig, p: Params, h_last: torch.Tensor
+                 ) -> torch.Tensor:
+    """h_last: (B, d) -> (B, vocab)."""
+    table = (p["embed"] if cfg.tie_embeddings else p["unembed"])["table"]
+    return h_last @ table.T
+
+
+def prefill_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
+               ) -> Tuple[torch.Tensor, List[Params]]:
+    """batch["tokens"]: (B, S) -> (logits of the last position, caches of S)."""
+    x = embed(p["embed"], batch["tokens"])
+    S = x.shape[1]
+    cos, sin = rope_angles(torch.arange(S, device=x.device), T.head_dim(cfg),
+                           cfg.rope_theta)
+    x, caches = T.run_stack_prefill(cfg, p["blocks"], x, cos, sin)
+    h = rmsnorm(p["final_norm"], x)
+    return _last_logits(cfg, p, h[:, -1]), caches
+
+
+def decode_fn(cfg: ModelConfig, p: Params, cache: List[Params],
+              tokens: torch.Tensor, pos: int
+              ) -> Tuple[torch.Tensor, List[Params]]:
+    """tokens: (B, 1) at position ``pos``; writes the caches in place."""
+    x = embed(p["embed"], tokens)
+    x, new_caches = T.run_stack_decode(cfg, p["blocks"], cache, x, pos)
+    h = rmsnorm(p["final_norm"], x)
+    return _last_logits(cfg, p, h[:, -1]), new_caches
+
+
+# ------------------------------------------------------------------- Model
+@dataclasses.dataclass
+class Model:
+    cfg: ModelConfig
+
+    def init(self, seed: int = 0, device="cuda") -> Params:
+        return init_params(self.cfg, seed, device)
+
+    def prefill(self, params, batch):
+        return prefill_fn(self.cfg, params, batch)
+
+    def decode(self, params, cache, tokens, pos):
+        return decode_fn(self.cfg, params, cache, tokens, pos)
+
+
+def build_model(cfg: ModelConfig) -> Model:
+    _check_supported(cfg)
+    return Model(cfg)
+
+
+# ----------------------------------------------------------------- steps
+def make_serve_step(cfg: ModelConfig) -> Callable:
+    model = build_model(cfg)
+
+    def serve_step(params, cache, tokens, pos):
+        logits, cache = model.decode(params, cache, tokens, pos)
+        return logits.argmax(dim=-1, keepdim=True), cache
+
+    return serve_step
+
+
+def make_prefill_step(cfg: ModelConfig) -> Callable:
+    model = build_model(cfg)
+
+    def prefill_step(params, batch):
+        logits, cache = model.prefill(params, batch)
+        return logits.argmax(dim=-1, keepdim=True), cache
+
+    return prefill_step

@@ -1,0 +1,91 @@
+"""Batched serving engine: prefill + greedy decode over a shared KV cache
+(counterpart of ``repro/serve/engine.py``).
+
+Static-batch semantics as in the reference: one batch of requests is
+left-padded with token 0 to the longest prompt (the pads are attended to,
+positions count from the first pad), prefilled together, then decoded one
+token per step until the largest ``max_new_tokens`` is reached; finished
+slots keep decoding until the batch drains.
+
+The KV cache is allocated at ``max_seq`` per layer and the prefill K/V are
+written into ``[:prompt_len]``, so decode step ``pos`` writes its own slot.
+(The reference's ``_grow_cache`` pads only 4-D leaves, and its prefill cache
+is stacked over layers and 5-D, so its decode steps overwrite the last
+prompt slot; that is not copied here.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.model import (ModelConfig, init_cache,
+                                      make_prefill_step, make_serve_step)
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: List[int]
+    max_new_tokens: int = 16
+
+
+@dataclasses.dataclass
+class Result:
+    tokens: List[int]              # generated continuation (greedy)
+
+
+class ServeEngine:
+    def __init__(self, cfg: ModelConfig, params, max_seq: int = 256,
+                 device="cuda") -> None:
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.params = params
+        self.max_seq = max_seq
+        self._prefill = make_prefill_step(cfg)
+        self._decode = make_serve_step(cfg)
+        # host-clock seconds of the last generate(), each phase ending in a
+        # device synchronise: prefill_s, decode_s, decode_steps
+        self.stats: Dict[str, float] = {}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    @torch.inference_mode()
+    def generate(self, requests: List[Request]) -> List[Result]:
+        B = len(requests)
+        plen = max(len(r.prompt) for r in requests)
+        if plen >= self.max_seq:
+            raise ValueError(f"prompt length {plen} leaves no room in "
+                             f"max_seq={self.max_seq}")
+        toks = np.zeros((B, plen), np.int64)
+        for i, r in enumerate(requests):
+            toks[i, plen - len(r.prompt):] = r.prompt     # left-pad
+        t0 = time.perf_counter()
+        nxt, prefix = self._prefill(
+            self.params, {"tokens": torch.from_numpy(toks).to(self.device)})
+        cache = init_cache(self.cfg, B, self.max_seq, self.device)
+        for layer, pre in zip(cache, prefix):
+            layer["k"][:, :plen] = pre["k"]
+            layer["v"][:, :plen] = pre["v"]
+        del prefix
+        self._sync()
+        t1 = time.perf_counter()
+        budget = max(r.max_new_tokens for r in requests)
+        out = [nxt]
+        pos = plen
+        for _ in range(min(budget - 1, self.max_seq - plen - 1)):
+            nxt, cache = self._decode(self.params, cache, nxt, pos)
+            out.append(nxt)
+            pos += 1
+        gen = torch.cat(out, dim=1).cpu().numpy()
+        t2 = time.perf_counter()
+        self.stats = {"prefill_s": t1 - t0, "decode_s": t2 - t1,
+                      "decode_steps": len(out) - 1}
+        return [Result(tokens=[int(t) for t in gen[i, :r.max_new_tokens]])
+                for i, r in enumerate(requests)]

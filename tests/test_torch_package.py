@@ -1,0 +1,134 @@
+"""repro_torch as a package: it imports neither JAX nor the JAX package, its
+entry points refuse to run without CUDA unless asked for the CPU, the
+launcher runs on the CPU, and the kernel build keys, logs and reports.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.serve import ServeEngine  # noqa: E402
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def test_importing_every_module_loads_no_jax():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                       "repro_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith(("jax.", "jaxlib"))
+                     or m == "repro" or m.startswith("repro."))
+        print(len(names), bad)
+        assert not bad, bad
+        assert len(names) >= 15, names
+    """)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    for path in files:
+        for mod in _imports(path):
+            root = mod.split(".")[0]
+            assert root not in ("jax", "jaxlib", "repro"), (path, mod)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--smoke"])
+
+
+def test_launcher_serves_on_cpu(capsys):
+    launch_serve.main(["--smoke", "--device", "cpu", "--batch", "2",
+                       "--prompt-len", "5", "--max-new", "4", "--max-seq", "16"])
+    out = capsys.readouterr().out
+    assert "generated 8 tokens" in out and "tok/s" in out
+    assert "prefill" in out and "ms/token (3 steps)" in out
+
+
+def _fake_nvcc(bin_dir: Path, exit_code: int) -> None:
+    """An ``nvcc`` that writes its ``-o`` file and a ptxas-like report."""
+    bin_dir.mkdir()
+    script = bin_dir / "nvcc"
+    script.write_text(textwrap.dedent(f"""\
+        #!{sys.executable}
+        import sys
+        out = sys.argv[sys.argv.index("-o") + 1]
+        print("ptxas info    : Used 7 registers", " ".join(sys.argv[1:]))
+        if {exit_code}:
+            sys.exit({exit_code})
+        open(out, "w").write("lib")
+    """))
+    script.chmod(0o755)
+
+
+@pytest.mark.parametrize("exit_code", [0, 1])
+def test_build_runs_nvcc_per_source_and_keys_by_hash(tmp_path, monkeypatch,
+                                                     exit_code):
+    csrc, build = tmp_path / "csrc", tmp_path / "build"
+    csrc.mkdir()
+    for name in ("a", "b"):
+        (csrc / f"{name}.cu").write_text(f"// {name}\n")
+    _fake_nvcc(tmp_path / "bin", exit_code)
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setattr(_build, "BUILD_DIR", build)
+    monkeypatch.setenv("PATH", f"{tmp_path / 'bin'}{os.pathsep}{os.environ['PATH']}")
+    if exit_code:
+        with pytest.raises(RuntimeError, match="nvcc failed for a.cu"):
+            _build.build_all()
+        assert not list(build.glob("*.so"))
+        return
+    libs = _build.build_all()
+    assert sorted(libs) == ["a", "b"] and all(p.exists() for p in libs.values())
+    log = libs["a"].with_suffix(".log").read_text()
+    assert "Used 7 registers" in log and "arch=compute_90a,code=sm_90a" in log
+    (csrc / "a.cu").write_text("// a, edited\n")
+    again = _build.build_all()
+    assert again["a"] != libs["a"] and again["b"] == libs["b"]
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    (tmp_path / "k.cu").write_text("// k\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build, "NVCC_DEFAULT", tmp_path / "no" / "nvcc")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build_all()
