@@ -7,18 +7,27 @@
 2. build: every CUDA C++ kernel in ``src/repro_torch/csrc`` with nvcc (all at
    once), and Triton's import;
 3. kernels: each kernel against its plain PyTorch version on the card over the
-   JAX package's kernel-test sweep (``tests/test_kernels.py``), both dtypes,
-   both ``causal`` values, and the main-path shapes; then the kernel, the plain
-   version and one PyTorch library call timed at the main-path shapes: device
-   time from torch.profiler (``ms``) and time per back-to-back call from CUDA
-   events (``call_ms``, host launch cost included);
+   JAX package's kernel-test sweeps (``tests/test_kernels.py``) and the
+   main-path shapes; the gradients through the flash-attention and RMSNorm
+   ``autograd.Function``s against autograd of the plain versions; then each
+   kernel, its plain version and one PyTorch library call timed at the
+   main-path shapes: device time from torch.profiler (``ms``) and time per
+   back-to-back call from CUDA events (``call_ms``, host launch cost
+   included);
 4. serve: tinyllama-1.1b at full width in bf16 from a seeded generator, four
    requests of 128-512 prompt tokens and 32 new tokens each through
    ``ServeEngine.generate``, with the kernels' launch counts read around that
    one run (after one short warm-up run); then each generated token checked
    against a fresh prefill of the tokens before it, and decode-step logits
    against a fresh prefill's (see serve_phase for the weights this uses);
-5. the ``kernels`` JSON line, then the last line
+5. train: tinyllama-1.1b at full width and depth in bf16, sequence 4096,
+   micro-batch 2, ``SyntheticLM`` batches, through ``Trainer.fit`` with
+   ``AdamW(fused=True)``: one warm-up step and 3 timed steps, launch counts
+   read per step; every param's gradient finite and nonzero; the per-leaf
+   and the fused update on the same gradients and state, timed and held
+   against each other; the DGC threshold kernel on the unembedding's
+   gradient; the loss falling over 5 steps on one batch;
+6. the ``kernels`` JSON line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
@@ -40,20 +49,39 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.data import Prefetcher, make_batch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.models import (build_model, init_cache,  # noqa: E402
-                                init_params)
+                                init_params, loss_and_grads)
+from repro_torch.optim import AdamW, opt_state  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
+DEV = "cuda"
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
+PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 FLASH_SWEEP = [(1, 2, 1, 128, 64), (2, 4, 2, 256, 128), (1, 8, 2, 96, 80),
                (1, 1, 1, 64, 128)]                   # (B, H, KH, S, D)
 RMS_SWEEP = [(4, 64), (3, 5, 300), (16, 1024), (1, 7)]
+ADAM_SWEEP = [100, 1024, 5000, 1 << 14]
+DGC_SWEEP = [((100,), 0.1), ((123, 45), 0.01), ((4096,), 0.001)]
 FLASH_ATOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 RMS_ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
+GRAD_ATOL = {torch.float32: 5e-3, torch.bfloat16: 5e-2}
+# plus this share of |reference|: two bf16 gradients rounded from f32 sums
+# that differ in the last bits can differ by one bf16 ulp (<= 2^-7 |x|),
+# which passes the atol where a gradient sums thousands of rows (dv, dk of
+# early keys at S = 4096; RMSNorm's dw)
+GRAD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+ADAM_KW = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, c1=0.2, c2=0.1)
+ADAM_ATOL = (1e-5, 1e-6, 1e-6)                       # p, m, v
 PROMPT_LENS = [128, 256, 384, 512]
 NEW_TOKENS = 32
+TRAIN_BATCH, TRAIN_SEQ = 2, 4096     # the repo's train_4k shape, micro-batch 2
+TRAIN_STEPS = 4                      # one warm-up step, then 3 timed
+DGC_RATIO = 0.01
 ARCH = "tinyllama-1.1b"
 
 
@@ -62,12 +90,16 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def sync() -> None:
+    torch.cuda.synchronize()
+
+
 def call_ms(fn, iters: int = 50) -> float:
     """Mean time per call of ``fn`` over back-to-back calls (CUDA events).
     Where the host launches slower than the device runs, this is host time."""
     for _ in range(3):
         fn()
-    torch.cuda.synchronize()
+    sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -78,38 +110,60 @@ def call_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_profile(fn, iters: int = 20):
-    """(device ms, device operations) per call of ``fn``: the CUDA kernels and
-    copies that torch.profiler records over ``iters`` calls, after 3 warm-up
-    calls."""
-    for _ in range(3):
+def device_profile(fn, iters: int = 20, warmup: int = 3):
+    """(device ms, device operations, host ms, top) per call of ``fn``: the
+    CUDA kernels and copies that torch.profiler records over ``iters`` calls,
+    after ``warmup`` calls, the host clock over them (ending in a sync; the
+    profiler's own cost included), and the 8 largest device ms by op name."""
+    for _ in range(warmup):
         fn()
-    torch.cuda.synchronize()
+    sync()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         for _ in range(iters):
             fn()
-        torch.cuda.synchronize()
+        sync()
+        host = time.perf_counter() - t0
     ops_ = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     us = sum(e.time_range.elapsed_us() for e in ops_)
     if not us > 0:
         fail("torch.profiler recorded no device time")
-    return us / iters / 1e3, len(ops_) / iters
+    by_name = {}
+    for e in ops_:
+        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
+    top = sorted(((t / iters / 1e3, n[:70]) for n, t in by_name.items()), reverse=True)[:8]
+    return us / iters / 1e3, len(ops_) / iters, host / iters * 1e3, top
 
 
 def device_ms(fn, iters: int = 20) -> float:
     return device_profile(fn, iters)[0]
 
 
-def timings(kernel, plain, library) -> dict:
-    return {"ms": device_ms(kernel), "plain_ms": device_ms(plain, 5),
-            "library_ms": device_ms(library),
-            "call_ms": {"kernel": call_ms(kernel), "plain": call_ms(plain, 10),
-                        "library": call_ms(library)}}
+def timings(kernel, plain, library, iters: int = 20) -> dict:
+    return {"ms": device_ms(kernel, iters), "plain_ms": device_ms(plain, 5),
+            "library_ms": device_ms(library, iters),
+            "call_ms": {"kernel": call_ms(kernel, iters), "plain": call_ms(plain, 5),
+                        "library": call_ms(library, iters)}}
+
+
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
 def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return (a.float() - b.float()).abs().max().item()
+
+
+def randn(gen, *shape, dtype=torch.float32):
+    return torch.randn(shape, generator=gen, device=DEV).to(dtype)
+
+
+def _autograd(fn, inputs, dout):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, dout)
 
 
 # --------------------------------------------------------------- phases
@@ -138,100 +192,226 @@ def build_phase() -> None:
     for path in libs.values():
         for line in path.with_suffix(".log").read_text().splitlines():
             if "registers" in line or "spill" in line:
-                print("  ptxas:", line.strip())
+                print(f"  ptxas {path.stem.split('-')[0]}:", line.strip())
+
+
+def _flash_entry(gen, cfg, batch: int, seq: int) -> dict:
+    """Flash attention at a main-path shape, as the model passes it: bf16
+    (B, S, H, hd) views, causal; checked, then timed."""
+    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim or cfg.d_model // cfg.n_heads
+    bf = torch.bfloat16
+    q = randn(gen, batch, seq, H, D, dtype=bf).transpose(1, 2)
+    k = randn(gen, batch, seq, KH, D, dtype=bf).transpose(1, 2)
+    v = randn(gen, batch, seq, KH, D, dtype=bf).transpose(1, 2)
+    err = max_err(ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))
+    if not err <= FLASH_ATOL[bf]:
+        fail(f"flash at {tuple(q.shape)}: {err}")
+    pairs = batch * H * seq * (seq + 1) // 2            # causal (q, k) pairs
+    nbytes = 2 * (2 * batch * H * seq * D + 2 * batch * KH * seq * D)
+    return {"max_abs_err": err,
+            **timings(lambda: ops.flash_attention(q, k, v),
+                      lambda: ref.flash_attention_ref(q, k, v),
+                      lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=True, enable_gqa=True)),
+            **bound(4 * D * pairs, nbytes),
+            "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"}
+
+
+def _rms_entry(gen, cfg, rows: int) -> dict:
+    x = randn(gen, rows, cfg.d_model, dtype=torch.bfloat16)
+    w = randn(gen, cfg.d_model, dtype=torch.bfloat16)
+    return {"max_abs_err": max_err(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w)),
+            **timings(lambda: ops.rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
+                      lambda: F.rms_norm(x, (cfg.d_model,), w, 1e-6)),
+            **bound(4 * rows * cfg.d_model, 2 * (2 * rows * cfg.d_model + cfg.d_model)),
+            "shape": f"x {tuple(x.shape)} bf16"}
 
 
 def kernel_phase(cfg, batch: int, seq: int) -> list:
-    gen = torch.Generator(device="cuda").manual_seed(0)
-
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
-
+    """Flash attention and RMSNorm (forward and gradients) over the sweeps
+    and at the serve and train shapes."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim or cfg.d_model // cfg.n_heads
+    train_flash = (TRAIN_BATCH, H, KH, TRAIN_SEQ, D)
     bad = []
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
         for causal in (True, False):
-            for B, h, kh, S, d in FLASH_SWEEP + [(batch, H, KH, seq, D)]:
-                q, k, v = randn(B, h, S, d, dtype=dt), randn(B, kh, S, d, dtype=dt), \
-                    randn(B, kh, S, d, dtype=dt)
+            for B, h, kh, S, d in FLASH_SWEEP + [(batch, H, KH, seq, D), train_flash]:
+                q, k, v = randn(gen, B, h, S, d, dtype=dt), \
+                    randn(gen, B, kh, S, d, dtype=dt), randn(gen, B, kh, S, d, dtype=dt)
                 err = max_err(ops.flash_attention(q, k, v, causal=causal),
                               ref.flash_attention_ref(q, k, v, causal=causal))
                 worst["flash_attention"] = max(worst.get("flash_attention", 0), err)
                 if not err <= FLASH_ATOL[dt]:
                     bad.append(f"flash {(B, h, kh, S, d)} {dt} causal={causal}: {err}")
-        for shape in RMS_SWEEP + [(batch * seq, cfg.d_model), (batch, 1, cfg.d_model)]:
-            x, w = randn(*shape, dtype=dt), randn(shape[-1])
+        for shape in RMS_SWEEP + [(batch * seq, cfg.d_model), (batch, 1, cfg.d_model),
+                                  (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)]:
+            x, w = randn(gen, *shape, dtype=dt), randn(gen, shape[-1])
             err = max_err(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
             worst["rmsnorm"] = max(worst.get("rmsnorm", 0), err)
             if not err <= RMS_ATOL[dt]:
                 bad.append(f"rmsnorm {shape} {dt}: {err}")
-    torch.cuda.synchronize()
+    sync()
     print(f"kernels: largest abs error over the sweeps {worst} "
           f"(atol flash 2e-3 f32 / 3e-2 bf16, rmsnorm 1e-5 f32 / 5e-2 bf16)")
     if bad:
         fail("kernel disagrees with its plain version: " + "; ".join(bad))
+    grad_phase(gen, train_flash, (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model))
 
-    # main-path shapes, as the model passes them: bf16, (B, S, H, hd) views
-    bf = torch.bfloat16
-    q = randn(batch, seq, H, D, dtype=bf).transpose(1, 2)
-    k = randn(batch, seq, KH, D, dtype=bf).transpose(1, 2)
-    v = randn(batch, seq, KH, D, dtype=bf).transpose(1, 2)
-    flash_err = max_err(ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))
-    pairs = batch * H * seq * (seq + 1) // 2            # causal (q, k) pairs
-    flops = 4 * D * pairs
-    nbytes = 2 * (2 * batch * H * seq * D + 2 * batch * KH * seq * D)
     flash = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:31",
-             "max_abs_err": flash_err,
-             **timings(lambda: ops.flash_attention(q, k, v),
-                       lambda: ref.flash_attention_ref(q, k, v),
-                       lambda: F.scaled_dot_product_attention(
-                           q, k, v, is_causal=True, enable_gqa=True)),
-             **bound(flops, nbytes),
-             "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"}
-    x = randn(batch * seq, cfg.d_model, dtype=bf)
-    w = randn(cfg.d_model, dtype=bf)
-    rows = batch * seq
+             **_flash_entry(gen, cfg, batch, seq),
+             "train_shape": _flash_entry(gen, cfg, TRAIN_BATCH, TRAIN_SEQ)}
     rms = {"name": "rmsnorm", "route": "triton",
            "source": "src/repro_torch/kernels/rmsnorm.py",
            "replaces": "src/repro/kernels/rmsnorm.py:24",
-           "max_abs_err": max_err(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w)),
-           **timings(lambda: ops.rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
-                     lambda: F.rms_norm(x, (cfg.d_model,), w, 1e-6)),
-           **bound(4 * rows * cfg.d_model, 2 * (2 * rows * cfg.d_model + cfg.d_model)),
-           "shape": f"x {tuple(x.shape)} bf16"}
-    xd = randn(batch, 1, cfg.d_model, dtype=bf)
+           **_rms_entry(gen, cfg, batch * seq),
+           "train_shape": _rms_entry(gen, cfg, TRAIN_BATCH * TRAIN_SEQ)}
+    xd = randn(gen, batch, 1, cfg.d_model, dtype=torch.bfloat16)
+    w = randn(gen, cfg.d_model, dtype=torch.bfloat16)
     print(f"kernels: rmsnorm at the decode shape {tuple(xd.shape)}: device "
           f"{device_ms(lambda: ops.rmsnorm(xd, w)):.4f} ms, per call "
-          f"{call_ms(lambda: ops.rmsnorm(xd, w)):.4f} ms")
-    for kern in (flash, rms):
-        print(f"kernels: {kern['name']} {kern['shape']}: device {kern['ms']:.4f} ms "
-              f"(plain {kern['plain_ms']:.4f}, library {kern['library_ms']:.4f}, "
-              f"bound {kern['bound_ms']:.4f} by {kern['bound_by']}); per call "
-              f"{kern['call_ms']}")
+          f"{call_ms(lambda: ops.rmsnorm(xd, w)):.4f} ms through ops (RMSNormFn), "
+          f"{call_ms(lambda: rmsnorm_kernel.rmsnorm(xd, w)):.4f} ms the wrapper alone")
     return [flash, rms]
 
 
-def bound(flops: float, nbytes: float) -> dict:
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
-            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+def grad_phase(gen, train_flash, train_x) -> None:
+    """Gradients through FlashAttentionFn and RMSNormFn (kernel forward,
+    plain backward) against autograd of the plain versions, over the sweeps
+    and at the train shapes (bf16, causal), within atol 5e-3 f32 / 5e-2 bf16
+    plus one bf16 ulp of the reference (GRAD_RTOL)."""
+    bf = torch.bfloat16
+    cases = [(s, dt, c) for s in FLASH_SWEEP for dt in (torch.float32, bf)
+             for c in (True, False)] + [(train_flash, bf, True)]
+    worst, bad = {}, []
+    for (B, H, KH, S, D), dt, causal in cases:
+        q, k, v, do = (randn(gen, *s, dtype=dt) for s in
+                       ((B, H, S, D), (B, KH, S, D), (B, KH, S, D), (B, H, S, D)))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(ops.flash_attention(*leaves, causal=causal), leaves, do)
+        want = _autograd(lambda *a: ref.flash_attention_ref(*a, causal=causal),
+                         (q, k, v), do)
+        for name, a, b in zip(("dq", "dk", "dv"), got, want):
+            err = max_err(a, b)
+            worst["flash_attention"] = max(worst.get("flash_attention", 0), err)
+            if not (_grad_close(a, b, dt) and a.dtype == b.dtype):
+                bad.append(f"flash {name} {(B, H, KH, S, D)} {dt} causal={causal}: {err}")
+        del q, k, v, do, leaves, got, want
+    for shape, dt in [(s, dt) for s in RMS_SWEEP for dt in (torch.float32, bf)] + \
+            [(train_x, bf)]:
+        x, dy, w = randn(gen, *shape, dtype=dt), randn(gen, *shape, dtype=dt), \
+            randn(gen, shape[-1], dtype=dt)
+        leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+        got = torch.autograd.grad(ops.rmsnorm(*leaves), leaves, dy)
+        want = _autograd(ref.rmsnorm_ref, (x, w), dy)
+        for name, a, b in zip(("dx", "dw"), got, want):
+            err = max_err(a, b)
+            worst["rmsnorm"] = max(worst.get("rmsnorm", 0), err)
+            if not (_grad_close(a, b, dt) and a.dtype == b.dtype):
+                bad.append(f"rmsnorm {name} {shape} {dt}: {err}")
+    sync()
+    print(f"kernels: gradients through the Functions, largest abs error {worst} "
+          f"(atol 5e-3 f32 / 5e-2 bf16, plus 2^-7 |reference| in bf16)")
+    if bad:
+        fail("gradient disagrees with autograd of the plain version: " + "; ".join(bad))
 
 
-def serve_phase(cfg, kernels: list) -> None:
+def _grad_close(a, b, dt) -> bool:
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= GRAD_ATOL[dt] + GRAD_RTOL[dt] * b.abs()).all())
+
+
+def adam_dgc_phase(n_params: int) -> list:
+    """fused_adam over the sweep and at the main-path N; dgc_mask over the
+    sweep.  Returns the fused_adam entry (the dgc entry is made on the train
+    step's gradient in train_phase)."""
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    bad = []
+
+    def adam_inputs(n):
+        p, g = randn(gen, n), randn(gen, n)
+        return p, g, randn(gen, n) * 0.1, randn(gen, n).abs() * 0.01
+
+    worst = 0.0
+    for n in ADAM_SWEEP + [n_params]:
+        p, g, m, v = adam_inputs(n)
+        want = ref.fused_adam_ref(p, g, m, v, **ADAM_KW)
+        got = ops.fused_adam(p.clone(), g, m.clone(), v.clone(), **ADAM_KW)
+        for name, a, b, atol in zip("pmv", got, want, ADAM_ATOL):
+            err = max_err(a, b)
+            worst = max(worst, err)
+            if not err <= atol:
+                bad.append(f"fused_adam {name} n={n}: {err}")
+        main_err = max_err(got[0], want[0])
+        del want, got
+    sync()
+    # at the main-path N: the kernel, the plain version and torch's own fused
+    # AdamW (decoupled weight decay, which is the same update), each in place
+    # on the same buffers
+    lr, c1, c2 = (torch.full((1,), ADAM_KW[k], device=DEV) for k in ("lr", "c1", "c2"))
+    kw = {k: ADAM_KW[k] for k in ("b1", "b2", "eps")}
+    step = torch.ones((), device=DEV)
+    adam = {"name": "fused_adam", "route": "cuda",
+            "source": "src/repro_torch/csrc/fused_adam.cu",
+            "replaces": "src/repro/kernels/fused_adam.py:26",
+            "max_abs_err": main_err,
+            **timings(lambda: ops.fused_adam(p, g, m, v, lr=lr, c1=c1, c2=c2,
+                                             wd=0.1, **kw),
+                      lambda: ref.fused_adam_ref(p, g, m, v, lr=lr, c1=c1, c2=c2,
+                                                 wd=0.1, **kw),
+                      lambda: torch._fused_adamw_(
+                          [p], [g], [m], [v], [], [step], lr=ADAM_KW["lr"],
+                          beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+                          amsgrad=False, maximize=False), iters=10),
+            **bound(15 * n_params, 28 * n_params, PEAK_F32_FLOPS),
+            "shape": f"p/g/m/v ({n_params},) f32"}
+    del p, g, m, v
+
+    dworst = 0
+    for shape, ratio in DGC_SWEEP:
+        for dt in (torch.float32, torch.bfloat16):
+            err, why = _dgc_check(randn(gen, *shape, dtype=dt), ratio)
+            dworst = max(dworst, err)
+            bad += [f"dgc {shape} {dt}: {why}"] if why else []
+    sync()
+    print(f"kernels: fused_adam largest abs error {worst:.3g} over n={ADAM_SWEEP} and "
+          f"{n_params} (atol p 1e-5, m/v 1e-6); dgc_mask largest abs error "
+          f"{dworst} over {DGC_SWEEP} in f32 and bf16 (exact)")
+    if bad:
+        fail("kernel disagrees with its plain version: " + "; ".join(bad))
+    return [adam]
+
+
+def _dgc_check(g, ratio: float):
+    """dgc_mask against the exact top-k oracle and the plain version: equal,
+    count >= k and equal to the plain count.  Returns (max abs error, what
+    failed or "")."""
+    want, k, thr = ref.dgc_topk_ref(g, ratio)
+    got, count = ops.dgc_mask(g, thr)
+    plain, plain_count = ref.dgc_mask_ref(g, thr)
+    err = max_err(got, want)
+    ok = (torch.equal(got, want) and torch.equal(got, plain) and got.dtype == g.dtype
+          and int(count) >= k and int(count) == int(plain_count))
+    return err, "" if ok else (f"count {int(count)} (plain {int(plain_count)}, "
+                               f"k {k}), max err {err}")
+
+
+def serve_phase(cfg, kernels: list) -> int:
+    """Returns the model's parameter count."""
     t0 = time.perf_counter()
-    params = init_params(cfg, seed=0, device="cuda")
-    torch.cuda.synchronize()
-    n_params = sum(t.numel() for t in _leaves(params))
+    params = init_params(cfg, seed=0, device=DEV)
+    sync()
+    n_params = sum(t.numel() for t in _named(params).values())
     print(f"serve: {cfg.name} full width, {n_params / 1e9:.3f}e9 params in "
           f"{cfg.dtype}, initialised in {time.perf_counter() - t0:.2f}s")
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab, n)],
                     max_new_tokens=NEW_TOKENS) for n in PROMPT_LENS]
     plen = max(PROMPT_LENS)
-    engine = ServeEngine(cfg, params, max_seq=plen + NEW_TOKENS, device="cuda")
+    engine = ServeEngine(cfg, params, max_seq=plen + NEW_TOKENS, device=DEV)
     # set-up, not counted: the first call of each GEMM shape and kernel loads it
     engine.generate([Request(r.prompt, 2) for r in reqs])
 
@@ -247,13 +427,14 @@ def serve_phase(cfg, kernels: list) -> None:
           f"decode {st['decode_s'] / steps * 1e3:.3f} ms/token over {steps} "
           f"steps, {total / (st['prefill_s'] + st['decode_s']):.1f} tokens/s")
     per_fwd = 2 * cfg.n_layers + 1
-    want = {"flash_attention": cfg.n_layers, "rmsnorm": per_fwd * (1 + steps)}
+    want = {"flash_attention": cfg.n_layers, "rmsnorm": per_fwd * (1 + steps),
+            "fused_adam": 0, "dgc_mask": 0}
     print(f"serve: launches {counts}; expected {want} "
           f"({cfg.n_layers} flash per prefill, {per_fwd} rmsnorm per forward)")
     if counts != want:
         fail(f"launch counts {counts} != {want}")
     for kern in kernels:
-        kern["launches"] = counts[kern["name"]]
+        kern.setdefault("launches_by_path", {})["serve"] = counts[kern["name"]]
     for r in results:
         if len(r.tokens) != NEW_TOKENS or not all(0 <= t < cfg.vocab for t in r.tokens):
             fail(f"bad generation {r.tokens}")
@@ -262,10 +443,10 @@ def serve_phase(cfg, kernels: list) -> None:
     # the served shapes, against the host clock's time for them above
     model = build_model(cfg)
     with torch.inference_mode():
-        toks = torch.ones(len(reqs), plen, dtype=torch.long, device="cuda")
-        pre_ms, pre_n = device_profile(lambda: model.prefill(params, {"tokens": toks}), 3)
-        cache = init_cache(cfg, len(reqs), plen + 1, "cuda")
-        dec_ms, dec_n = device_profile(
+        toks = torch.ones(len(reqs), plen, dtype=torch.long, device=DEV)
+        pre_ms, pre_n, _, _ = device_profile(lambda: model.prefill(params, {"tokens": toks}), 3)
+        cache = init_cache(cfg, len(reqs), plen + 1, DEV)
+        dec_ms, dec_n, _, _ = device_profile(
             lambda: model.decode(params, cache, toks[:, :1], plen), 5)
     host_pre, host_dec = st["prefill_s"] * 1e3, st["decode_s"] / steps * 1e3
     print(f"serve: device time per prefill {pre_ms:.3f} ms over {pre_n:.0f} device "
@@ -282,12 +463,12 @@ def serve_phase(cfg, kernels: list) -> None:
     # same bf16 weights with the attention projections rescaled to the usual
     # fan-in (1/sqrt(d) over the contracted dimensions), where the two paths
     # must agree.
-    seq = torch.tensor(rng.integers(1, cfg.vocab, (len(reqs), plen + 1)), device="cuda")
+    seq = torch.tensor(rng.integers(1, cfg.vocab, (len(reqs), plen + 1)), device=DEV)
     print("serve: reference init, bf16 (printed, not checked): "
           + _consistency(cfg, params, reqs, results, seq)[0])
     cfg32, params32 = cfg.with_(dtype="float32"), _tree_map(torch.Tensor.float, params)
     res32 = ServeEngine(cfg32, params32, max_seq=plen + NEW_TOKENS,
-                        device="cuda").generate(reqs)
+                        device=DEV).generate(reqs)
     print("serve: reference init, f32 (printed, not checked): "
           + _consistency(cfg32, params32, reqs, res32, seq)[0])
     del params32
@@ -297,6 +478,214 @@ def serve_phase(cfg, kernels: list) -> None:
     print("serve: attention rescaled to the usual fan-in: " + text)
     if not ok:
         fail("served tokens or decode logits disagree with prefill")
+    return n_params
+
+
+def _batches(cfg, seq: int, batch: int, start: int = 0):
+    step = start
+    while True:
+        yield make_batch(cfg, seq_len=seq, batch=batch, step=step)
+        step += 1
+
+
+def _device_batch(cfg, step: int) -> dict:
+    return {k: torch.from_numpy(v).to(DEV) for k, v in
+            make_batch(cfg, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, step=step).items()}
+
+
+def train_phase(cfg, kernels: list, n_params: int) -> None:
+    B, S, L = TRAIN_BATCH, TRAIN_SEQ, cfg.n_layers
+    H, D = cfg.n_heads, cfg.head_dim or cfg.d_model // cfg.n_heads
+    per_step = {"flash_attention": L, "rmsnorm": 2 * L + 1, "fused_adam": 1,
+                "dgc_mask": 0}
+    trainer = Trainer(cfg, TrainerConfig(steps=TRAIN_STEPS, log_every=0, seed=0),
+                      optimizer=AdamW(fused=True), device=DEV)
+    step_counts = []
+
+    def hook(i, metrics):          # the counts of step i, then zero for i + 1
+        step_counts.append(ops.launch_counts())
+        ops.reset_launch_counts()
+
+    torch.cuda.reset_peak_memory_stats()
+    batches = Prefetcher(_batches(cfg, S, B))
+    ops.reset_launch_counts()
+    state = trainer.fit(batches, hooks=hook)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    run_counts = {k: sum(c[k] for c in step_counts) for k in per_step}
+    log = trainer.metrics_log
+    step_s = float(np.mean([m["step_time_s"] for m in log[1:]]))
+    tokens = B * S
+    pairs = B * H * S * (S + 1) // 2
+    attn_flops = 3 * 4 * D * pairs * L          # forward + backward (2x)
+    flops = 6 * n_params * tokens + attn_flops
+    print(f"train: {cfg.name} full width and depth, {n_params / 1e9:.3f}e9 params "
+          f"in {cfg.dtype}, seq {S}, micro-batch {B} ({tokens} tokens/step), "
+          f"AdamW(fused=True); peak device memory {peak_gb:.2f} GB")
+    for m in log:
+        print(f"train: step {m['step']} loss {m['loss']:.4f} grad_norm "
+              f"{m['grad_norm']:.4f} host {m['step_time_s'] * 1e3:.1f} ms"
+              + (" (warm-up, not counted)" if m["step"] == 0 else ""))
+    print(f"train: step {step_s * 1e3:.1f} ms (mean of steps 1-{len(log) - 1}, host "
+          f"clock ending in a sync), {tokens / step_s:.1f} tokens/s, mfu "
+          f"{flops / step_s / PEAK_BF16_FLOPS:.4f} ((6 N tokens + causal attention "
+          f"{attn_flops:.3g}) / step time / 989e12)")
+    print(f"train: launches per step {step_counts}; expected {per_step} each")
+    if any(c != per_step for c in step_counts) or len(step_counts) != TRAIN_STEPS:
+        fail(f"train launch counts per step {step_counts} != {per_step}")
+    if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in log):
+        fail("non-finite loss or grad norm in training")
+
+    # device busy share of one step
+    batch = _device_batch(cfg, TRAIN_STEPS)
+    holder = {"state": state}
+
+    def one_step():
+        holder["state"], _ = trainer.step_fn(holder["state"], batch)
+
+    dev_ms, dev_n, host_ms, top = device_profile(one_step, iters=1, warmup=0)
+    print(f"train: one step under torch.profiler: device {dev_ms:.1f} ms over "
+          f"{dev_n:.0f} device ops, host {host_ms:.1f} ms (busy {dev_ms / host_ms:.1%}); "
+          f"largest device ms by op: " + "; ".join(f"{n} {t:.1f}" for t, n in top))
+    state = holder.pop("state")
+
+    # every param leaf gets a finite, nonzero gradient, and the backward
+    # launches no kernel (forward launches only)
+    params = state["params"]
+    ops.reset_launch_counts()
+    loss, grads = loss_and_grads(cfg, params, batch)
+    sync()
+    counts = ops.launch_counts()
+    fwd = {**per_step, "fused_adam": 0}
+    dead = [name for name, g in _named(grads).items()
+            if not (torch.isfinite(g).all() and (g != 0).any())]
+    print(f"train: loss {loss.item():.4f}; {len(_named(grads))} gradient leaves, "
+          f"{len(dead)} not finite or all zero; launches of one forward and "
+          f"backward {counts} (expected {fwd})")
+    if dead:
+        fail(f"gradient missing (non-finite or all zero) for {dead}")
+    if counts != fwd:
+        fail(f"forward+backward launch counts {counts} != {fwd}")
+
+    update_phase(grads, state, params)
+    kernels.append(dgc_entry(grads["unembed"]["table"]))
+    for kern in kernels:
+        kern.setdefault("launches_by_path", {})["train"] = run_counts[kern["name"]]
+        kern["launches_per_train_step"] = per_step[kern["name"]]
+    del grads, state, params, holder
+    loss_falls_phase(cfg, trainer)
+
+
+def update_phase(grads, state, params) -> None:
+    """The per-leaf and the fused update on the same gradients and cloned
+    state (paper §6.3 on the H100): device ms and ops of each, and the two
+    results held against each other."""
+    opt = state["opt"]
+
+    def clone():
+        return opt_state(opt["m"], opt["v"], int(opt["count"]))
+
+    unfused, fused = AdamW(fused=False), AdamW(fused=True)
+    pu, su = unfused.apply(grads, clone(), params)
+    pf, sf = fused.apply(grads, clone(), params)
+    sync()
+    # Params in bf16 ulps at the scale of the operands, max(|p|, |p'|): the
+    # two paths round p - lr * step in a different order (the kernel fuses
+    # multiply-adds), an f32 difference at the operands' scale; where p' nearly
+    # cancels to 0, that is many ulps of p' itself (printed, not checked).
+    worst_ulps, worst_own, n_diff, n_all = 0.0, 0.0, 0, 0
+    p0 = _named(params)
+    for name, a in _named(pu).items():
+        a, b, p = a.float(), _named(pf)[name].float(), p0[name].float()
+        diff = (a - b).abs()
+        worst_ulps = max(worst_ulps, (diff / _bf16_ulp(torch.maximum(
+            p.abs(), torch.maximum(a.abs(), b.abs())))).max().item())
+        worst_own = max(worst_own, (diff / _bf16_ulp(torch.maximum(
+            a.abs(), b.abs()))).max().item())
+        n_diff += int((diff > 0).sum())
+        n_all += a.numel()
+    worst_rel = 0.0
+    # m and v relative to each leaf's largest entry: an entry of m where
+    # b1 m + (1 - b1) g cancels carries the clip scale's last-bit difference
+    # (flat against per-leaf grad norm) at no relative precision
+    for tree in ("m", "v"):
+        for name, a in _named(su[tree]).items():
+            b = _named(sf[tree])[name]
+            rel = ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+            worst_rel = max(worst_rel, rel)
+    gu, gf = float(su["gnorm"]), float(sf["gnorm"])
+    print(f"update: fused against per-leaf on the same gradients and state: params "
+          f"within {worst_ulps:.2f} bf16 ulp of max(|p|, |p'|) (need <= 1; "
+          f"{n_diff} of {n_all} differ at all, at most {worst_own:.0f} ulp of "
+          f"|p'| itself), m/v within {worst_rel:.3g} of each leaf's largest "
+          f"entry (need <= 1e-5), grad norm {gu:.6f} / {gf:.6f}")
+    if not (worst_ulps <= 1 and worst_rel <= 1e-5):
+        fail("fused and per-leaf AdamW disagree")
+    del pu, su, pf, sf
+    res = {}
+    for label, o in (("per-leaf", unfused), ("fused", fused)):
+        s = clone()
+        res[label] = device_profile(lambda: o.apply(grads, s, params), iters=5)
+        del s
+    (um, un, uh, _), (fm, fn, fh, _) = res["per-leaf"], res["fused"]
+    print(f"update: AdamW.apply per-leaf {um:.3f} ms device over {un:.0f} device ops "
+          f"({uh:.3f} ms host per call); apply_fused {fm:.3f} ms device over "
+          f"{fn:.0f} device ops ({fh:.3f} ms host per call); device ratio "
+          f"{um / fm:.2f}x, host ratio {uh / fh:.2f}x")
+
+
+def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bf16 ulp at |x|: 2^(exponent - 8), frexp's mantissa in [0.5, 1)."""
+    return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
+
+
+def dgc_entry(g) -> dict:
+    """The DGC threshold kernel on a training gradient (the unembedding's):
+    its own path (k-th magnitude from the exact oracle, then one dgc_mask),
+    checked and timed."""
+    want, k, thr = ref.dgc_topk_ref(g, DGC_RATIO)
+    ops.reset_launch_counts()
+    got, count = ops.dgc_mask(g, thr)
+    sync()
+    launches = ops.launch_counts()["dgc_mask"]
+    _, why = _dgc_check(g, DGC_RATIO)
+    print(f"dgc: unembedding gradient {tuple(g.shape)} {g.dtype}, ratio {DGC_RATIO}: "
+          f"k {k}, kept {int(count)}, max abs err {max_err(got, want)} (exact); "
+          f"launches {launches}")
+    if why or launches != 1:
+        fail(f"dgc_mask on the unembedding gradient: {why} launches {launches}")
+    nbytes = g.numel() * 2 * g.element_size()
+    return {"name": "dgc_mask", "route": "cuda",
+            "source": "src/repro_torch/csrc/dgc_topk.cu",
+            "replaces": "src/repro/kernels/dgc_topk.py:27",
+            "max_abs_err": max_err(got, want),
+            **timings(lambda: ops.dgc_mask(g, thr), lambda: ref.dgc_mask_ref(g, thr),
+                      lambda: torch.where(g.abs() >= thr, g, 0)),
+            "library_call": "torch.where(g.abs() >= thr, g, 0), without the count",
+            **bound(2 * g.numel(), nbytes, PEAK_F32_FLOPS),
+            "launches_by_path": {"dgc": launches},
+            "shape": f"g {tuple(g.shape)} {str(g.dtype).replace('torch.', '')}"}
+
+
+def loss_falls_phase(cfg, trainer) -> None:
+    """5 fused-AdamW steps on one fixed batch: printed for the reference init,
+    checked (last loss below the first) with the attention projections
+    rescaled to the usual fan-in (the reference init is chaotic at this
+    width, see serve_phase)."""
+    batch = _device_batch(cfg, 0)
+    for label, rescale in (("reference init (printed, not checked)", False),
+                           ("attention rescaled", True)):
+        state = trainer.init_state()
+        if rescale:
+            _rescale_attention(cfg, state["params"])
+        losses = []
+        for _ in range(5):
+            state, m = trainer.step_fn(state, batch)
+            losses.append(float(m["loss"]))
+        del state
+        print(f"train: 5 steps on one batch, {label}: losses "
+              + ", ".join(f"{x:.4f}" for x in losses))
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"loss did not fall over 5 steps on one batch: {losses}")
 
 
 def _rescale_attention(cfg, params) -> None:
@@ -316,10 +705,10 @@ def _consistency(cfg, params, reqs, results, seq):
     model = build_model(cfg)
     plen = max(len(r.prompt) for r in reqs)
     with torch.inference_mode():
-        toks = torch.zeros(len(reqs), plen, dtype=torch.long, device="cuda")
+        toks = torch.zeros(len(reqs), plen, dtype=torch.long, device=DEV)
         for i, r in enumerate(reqs):
             toks[i, plen - len(r.prompt):] = torch.tensor(r.prompt)
-        gen = torch.tensor([r.tokens for r in results], device="cuda")
+        gen = torch.tensor([r.tokens for r in results], device=DEV)
         agree = []
         for t in range(gen.shape[1]):
             logits, _ = model.prefill(params, {"tokens": torch.cat([toks, gen[:, :t]], 1)})
@@ -328,7 +717,7 @@ def _consistency(cfg, params, reqs, results, seq):
         S = seq.shape[1] - 1
         full, _ = model.prefill(params, {"tokens": seq})
         _, prefix = model.prefill(params, {"tokens": seq[:, :S]})
-        cache = init_cache(cfg, seq.shape[0], S + 1, "cuda")
+        cache = init_cache(cfg, seq.shape[0], S + 1, DEV)
         for layer, pre in zip(cache, prefix):
             layer["k"][:, :S], layer["v"][:, :S] = pre["k"], pre["v"]
         dec, _ = model.decode(params, cache, seq[:, S:], S)
@@ -351,26 +740,39 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
-def _leaves(tree):
+def _named(tree, prefix=""):
+    """{dotted path: leaf} of a nested dict/list tree."""
     if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
+        items = tree.items()
     elif isinstance(tree, list):
-        for v in tree:
-            yield from _leaves(v)
+        items = enumerate(tree)
     else:
-        yield tree
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in items:
+        out.update(_named(v, f"{prefix}{k}."))
+    return out
 
 
 def main() -> None:
+    t0 = time.perf_counter()
     name = device_phase()
     build_phase()
     cfg = get_config(ARCH)
     kernels = kernel_phase(cfg, len(PROMPT_LENS), max(PROMPT_LENS))
-    serve_phase(cfg, kernels)
+    n_params = serve_phase(cfg, kernels)
+    kernels += adam_dgc_phase(n_params)
+    train_phase(cfg, kernels, n_params)
+    for kern in kernels:    # the count from this slice's main path, or its own
+        paths = kern["launches_by_path"]
+        kern["launches"] = paths.get("train") or paths.get("dgc", 0)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms", "shape"]
-    print(json.dumps({"kernels": [{k: kern[k] for k in keys} for kern in kernels]}))
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms", "shape",
+            "launches_by_path", "launches_per_train_step"]
+    extra = ["train_shape", "library_call"]
+    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
+    print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
+                                  for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
 

@@ -5,8 +5,11 @@ nor JAX.  Plain tensor code is PyTorch; every Pallas TPU kernel on a ported
 path is a kernel written by hand for Hopper (``repro_torch.kernels``).
 
 Ported so far: the dense-decoder serve path (``models``, ``serve.engine``,
-``launch.serve``) with its two kernels, flash attention (CUDA C++) and
-RMSNorm (Triton).  Entry points run on ``cuda`` unless the caller passes
+``launch.serve``) and train path (``models.make_train_step``, ``optim``,
+``data``, ``runtime``, ``train.loop``, ``launch.train``), with all four
+kernels: flash attention (CUDA C++) and RMSNorm (Triton), each with a plain
+PyTorch backward, the fused AdamW update (CUDA C++) and the DGC threshold
+pass (CUDA C++).  Entry points run on ``cuda`` unless the caller passes
 ``device="cpu"``; on the CPU each kernel wrapper runs its plain version.
 """
 

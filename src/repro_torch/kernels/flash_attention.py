@@ -5,7 +5,9 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 (``_flash_kernel`` / ``flash_attention``).  The source file carries the
 kernel's note: what bounds it on the H100 and what its design does about it.
 Unlike the TPU wrapper, nothing is padded: the kernel masks the ragged S edge
-and the D columns itself, and the scale uses the real D.
+and the D columns itself, and the scale uses the real D.  ``FlashAttentionFn``
+gives it a gradient through a plain PyTorch backward (the TPU kernel has no
+backward kernel either).
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import math
 
 import torch
 
-from . import _build
+from . import _build, ref
 
 launches = 0   # kernel launches since the last reset (see ops.launch_counts)
 
@@ -73,3 +75,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                            f"{err_str(err).decode()} (cudaError {err})")
     launches += 1
     return o
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """``flash_attention`` with a gradient: the forward launches the kernel;
+    the backward is plain PyTorch (``ref.flash_attention_bwd``, recomputing
+    from the saved q, k, v) and launches no kernel of this module."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return flash_attention(q, k, v, causal=causal)
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        return (*ref.flash_attention_bwd(q, k, v, do, causal=ctx.causal), None)

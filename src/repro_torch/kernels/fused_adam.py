@@ -1,0 +1,69 @@
+"""Fused AdamW update: the wrapper of the CUDA C++ kernel in
+``repro_torch/csrc/fused_adam.cu``, bound with ctypes.
+
+Replaces the Pallas TPU kernel ``repro/kernels/fused_adam.py``
+(``_adam_kernel`` / ``fused_adam_2d``).  The source file carries the kernel's
+note: what bounds it on the H100 and what its design does about it.  Unlike
+the TPU wrapper nothing is padded or reshaped, and the update is in place:
+``p``, ``m`` and ``v`` are overwritten and returned.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from . import _build
+
+launches = 0   # kernel launches since the last reset (see ops.launch_counts)
+
+
+@functools.cache
+def _fn():
+    lib = _build.load("fused_adam")
+    fn = lib.repro_fused_adam
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_float] * 6
+                   + [ctypes.c_longlong, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return fn, lib.repro_cuda_error_string
+
+
+def fused_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+               v: torch.Tensor, lr: torch.Tensor, c1: torch.Tensor,
+               c2: torch.Tensor, *, b1: float, b2: float, eps: float,
+               wd: float) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """p, g, m, v: flat contiguous f32 CUDA vectors of one length, four
+    distinct buffers; lr, c1, c2: one-element f32 tensors on the same device
+    (read by the kernel there, so no host sync).  Updates p, m, v in place
+    and returns them."""
+    global launches
+    vecs = (p, g, m, v)
+    if any(t.dim() != 1 or t.shape != p.shape for t in vecs):
+        raise ValueError("fused_adam: p, g, m, v must be 1-D of one length, got "
+                         f"{[tuple(t.shape) for t in vecs]}")
+    scalars = (lr, c1, c2)
+    if any(t.dtype != torch.float32 for t in vecs + scalars):
+        raise TypeError("fused_adam: all tensors must be float32")
+    if any(t.numel() != 1 for t in scalars):
+        raise ValueError("fused_adam: lr, c1, c2 must hold one element each")
+    if not (p.is_cuda and all(t.device == p.device for t in vecs + scalars)):
+        raise ValueError("fused_adam: all tensors must be on one CUDA device")
+    if not all(t.is_contiguous() for t in vecs + scalars):
+        raise ValueError("fused_adam: all tensors must be contiguous")
+    if p.numel() and len({t.data_ptr() for t in vecs}) != 4:
+        raise ValueError("fused_adam: p, g, m, v must be distinct buffers")
+    fn, err_str = _fn()
+    err = fn(p.data_ptr(), g.data_ptr(), m.data_ptr(), v.data_ptr(),
+             lr.data_ptr(), c1.data_ptr(), c2.data_ptr(),
+             b1, 1 - b1, b2, 1 - b2, eps, wd, p.numel(),
+             torch.cuda.current_stream(p.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"fused_adam kernel launch failed: "
+                           f"{err_str(err).decode()} (cudaError {err})")
+    launches += 1
+    return p, m, v

@@ -2,20 +2,25 @@
 
 A CPU tensor goes to the plain version in ``ref``; a CUDA tensor goes to the
 hand-written kernel, whose wrapper raises on what it cannot take.  There is no
-fallback from a CUDA tensor to the plain version.
+fallback from a CUDA tensor to the plain version.  On CUDA, flash attention
+and RMSNorm go through their ``autograd.Function`` (kernel forward, plain
+backward), so gradients flow through them.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
+from . import dgc_topk as _dg
 from . import flash_attention as _fa
+from . import fused_adam as _ad
 from . import rmsnorm as _rn
 from . import ref
 
-_KERNELS = {"flash_attention": _fa, "rmsnorm": _rn}
+_KERNELS = {"flash_attention": _fa, "rmsnorm": _rn, "fused_adam": _ad,
+            "dgc_mask": _dg}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -23,14 +28,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, H, S, D); k/v: (B, KH, S, D) -> (B, H, S, D) in q's dtype."""
     if q.device.type == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    return _fa.flash_attention(q, k, v, causal=causal)
+    return _fa.FlashAttentionFn.apply(q, k, v, causal)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """x: (..., D), w: (D,) -> RMSNorm over the last dim, in x's dtype."""
     if x.device.type == "cpu":
         return ref.rmsnorm_ref(x, w, eps)
-    return _rn.rmsnorm(x, w, eps)
+    return _rn.RMSNormFn.apply(x, w, eps)
+
+
+def _scalar(x, like: torch.Tensor) -> torch.Tensor:
+    """A step constant as a (1,) f32 tensor on ``like``'s device; a tensor
+    stays on the device, a number is a fill there (no host-to-device copy)."""
+    if isinstance(x, torch.Tensor):
+        return x.reshape(1).to(device=like.device, dtype=torch.float32)
+    return torch.full((1,), float(x), dtype=torch.float32, device=like.device)
+
+
+def fused_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+               v: torch.Tensor, *, lr, b1: float, b2: float, eps: float,
+               wd: float, c1, c2
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flat f32 vectors (N,) -> updated (p, m, v).  ``lr``, ``c1``, ``c2``
+    are numbers or one-element tensors.  On CUDA the kernel updates p, m, v
+    in place and returns them; on the CPU the plain version returns new
+    tensors."""
+    if p.device.type == "cpu":
+        return ref.fused_adam_ref(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
+                                  wd=wd, c1=c1, c2=c2)
+    return _ad.fused_adam(p, g, m, v, _scalar(lr, p), _scalar(c1, p),
+                          _scalar(c2, p), b1=b1, b2=b2, eps=eps, wd=wd)
+
+
+def dgc_mask(g: torch.Tensor, threshold) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Zero entries with |g| < threshold.  Returns (sparse g, kept count)."""
+    if g.device.type == "cpu":
+        return ref.dgc_mask_ref(g, threshold)
+    return _dg.dgc_threshold(g, _scalar(threshold, g))
 
 
 def launch_counts() -> Dict[str, int]:

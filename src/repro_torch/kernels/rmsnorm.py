@@ -15,7 +15,8 @@ program still moves a few KB), the whole row in registers as one block of
 
 ``triton`` is imported at the first launch, not with this module, so the
 module imports on machines without it (the CPU tests use ``ops.rmsnorm``'s
-plain path).
+plain path).  ``RMSNormFn`` gives the kernel a gradient through a plain
+PyTorch backward.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import os
 
 import torch
 
-from . import _build
+from . import _build, ref
 
 launches = 0   # kernel launches since the last reset (see ops.launch_counts)
 
@@ -85,3 +86,20 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
                  BLOCK_D=block_d, ROWS=rows, num_warps=warps)
     launches += 1
     return y2.reshape(x.shape)
+
+
+class RMSNormFn(torch.autograd.Function):
+    """``rmsnorm`` with a gradient: the forward launches the kernel; the
+    backward is plain PyTorch (``ref.rmsnorm_bwd``, recomputing from the
+    saved x and w) and launches no kernel of this module."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps: float):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return rmsnorm(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        return (*ref.rmsnorm_bwd(x, w, dy, ctx.eps), None)

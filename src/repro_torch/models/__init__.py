@@ -1,8 +1,9 @@
 """Dense decoder model in PyTorch (counterpart of ``repro.models``)."""
 
 from .model import (Model, ModelConfig, build_model, decode_fn, init_cache,
-                    init_params, make_prefill_step, make_serve_step,
-                    prefill_fn)
+                    init_params, loss_and_grads, loss_fn, make_prefill_step,
+                    make_serve_step, make_train_step, prefill_fn)
 
 __all__ = ["Model", "ModelConfig", "build_model", "decode_fn", "init_cache",
-           "init_params", "make_prefill_step", "make_serve_step", "prefill_fn"]
+           "init_params", "loss_and_grads", "loss_fn", "make_prefill_step",
+           "make_serve_step", "make_train_step", "prefill_fn"]

@@ -7,10 +7,11 @@ Plain functions over dicts of tensors, with the reference's weight layouts.
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 from .paramdecl import normal_param, ones_param
@@ -55,3 +56,36 @@ def mlp(p: Params, x: torch.Tensor, *, activation: str = "silu") -> torch.Tensor
     up = x @ p["w_up"]
     h = act(x @ p["w_gate"]) * up if "w_gate" in p else act(up)
     return h @ p["w_down"]
+
+
+# ------------------------------------------------------- chunked CE loss
+def _chunk_nll(x: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+               mask: torch.Tensor) -> torch.Tensor:
+    """Summed masked NLL of one sequence chunk; logits f32, (B, cs, vocab)."""
+    logits = (x @ table.T).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    return ((logz - gold) * mask).sum()
+
+
+def softmax_cross_entropy_chunked(embed_params: Params, x: torch.Tensor,
+                                  labels: torch.Tensor,
+                                  mask: Optional[torch.Tensor],
+                                  chunk: int = 2048) -> torch.Tensor:
+    """Per-token CE against the unembedding, computed in *sequence* chunks of
+    ``cs = max(1, min(max(chunk // B, 1), S))`` positions (the reference's
+    chunk size with no mesh), so the full (tokens, vocab) logits never exist:
+    each chunk's logits are recomputed in the backward
+    (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
+    Returns ``sum(nll * mask) / max(sum(mask), 1)``."""
+    B, S, _ = x.shape
+    m = (mask.float() if mask is not None
+         else torch.ones((B, S), dtype=torch.float32, device=x.device))
+    cs = max(1, min(max(chunk // B, 1), S))
+    table = embed_params["table"]
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for s0 in range(0, S, cs):
+        sl = slice(s0, s0 + cs)
+        total = total + checkpoint(_chunk_nll, x[:, sl], table, labels[:, sl],
+                                   m[:, sl], use_reentrant=False)
+    return total / m.sum().clamp_min(1.0)

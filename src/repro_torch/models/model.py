@@ -2,6 +2,9 @@
 for the dense family:
 
     init_params(cfg, seed, device)          -> params
+    loss_fn(cfg, params, batch)             -> scalar loss          (train)
+    loss_and_grads(cfg, params, batch)      -> (loss, grads)
+    make_train_step(cfg, optimizer)         -> (state, batch) -> (state, metrics)
     prefill_fn(cfg, params, batch)          -> (last-token logits, caches)
     decode_fn(cfg, params, caches, tok, pos)-> (logits, caches)   (one token)
     init_cache(cfg, batch, max_seq, device) -> zeroed per-layer KV caches
@@ -19,11 +22,13 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch import resolve_device
 from . import transformer as T
 from .attention import rope_angles
-from .layers import embed, embedding_init, rmsnorm, rmsnorm_init
+from .layers import (embed, embedding_init, rmsnorm, rmsnorm_init,
+                     softmax_cross_entropy_chunked)
 from .paramdecl import normal_param
 
 Params = Dict[str, Any]
@@ -133,8 +138,36 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device
 def _last_logits(cfg: ModelConfig, p: Params, h_last: torch.Tensor
                  ) -> torch.Tensor:
     """h_last: (B, d) -> (B, vocab)."""
-    table = (p["embed"] if cfg.tie_embeddings else p["unembed"])["table"]
-    return h_last @ table.T
+    return h_last @ _unembed_params(cfg, p)["table"].T
+
+
+def _unembed_params(cfg: ModelConfig, p: Params) -> Params:
+    return p["embed"] if cfg.tie_embeddings else p["unembed"]
+
+
+def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
+            ) -> torch.Tensor:
+    """batch["tokens"], batch["labels"]: (B, S) [, "mask"] -> mean token CE."""
+    x = embed(p["embed"], batch["tokens"].long())
+    S = x.shape[1]
+    cos, sin = rope_angles(torch.arange(S, device=x.device), T.head_dim(cfg),
+                           cfg.rope_theta)
+    h = rmsnorm(p["final_norm"], T.run_stack(cfg, p["blocks"], x, cos, sin))
+    return softmax_cross_entropy_chunked(_unembed_params(cfg, p), h,
+                                         batch["labels"], batch.get("mask"),
+                                         chunk=cfg.loss_chunk)
+
+
+def loss_and_grads(cfg: ModelConfig, p: Params,
+                   batch: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, Params]:
+    """(loss, gradient tree like ``p``) by ``torch.autograd.grad`` over the
+    param leaves; the loss is a detached 0-dim device tensor."""
+    leaves, spec = tree_flatten(p)
+    leaves = [t.detach().requires_grad_() for t in leaves]
+    with torch.enable_grad():
+        loss = loss_fn(cfg, tree_unflatten(leaves, spec), batch)
+        grads = torch.autograd.grad(loss, leaves)
+    return loss.detach(), tree_unflatten(list(grads), spec)
 
 
 def prefill_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
@@ -167,6 +200,9 @@ class Model:
     def init(self, seed: int = 0, device="cuda") -> Params:
         return init_params(self.cfg, seed, device)
 
+    def loss(self, params, batch):
+        return loss_fn(self.cfg, params, batch)
+
     def prefill(self, params, batch):
         return prefill_fn(self.cfg, params, batch)
 
@@ -180,6 +216,39 @@ def build_model(cfg: ModelConfig) -> Model:
 
 
 # ----------------------------------------------------------------- steps
+def make_train_step(cfg: ModelConfig, optimizer) -> Callable:
+    """(state, batch) -> (state, metrics).  state = {params, opt, step};
+    metrics = {loss, grad_norm}, 0-dim device tensors (nothing here waits for
+    the device).  ``cfg.grad_accum > 1`` splits the batch's leading dim into
+    that many microbatches, sums their losses and gradients and divides by
+    the count, as the reference's scan does."""
+    build_model(cfg)
+
+    def train_step(state, batch):
+        params = state["params"]
+        accum = cfg.grad_accum
+        if accum > 1:
+            mbs = {k: t.reshape((accum, t.shape[0] // accum) + t.shape[1:])
+                   for k, t in batch.items()}
+            loss, grads = None, None
+            for i in range(accum):
+                l, g = loss_and_grads(cfg, params, {k: t[i] for k, t in mbs.items()})
+                loss = l if loss is None else loss + l
+                grads = g if grads is None else tree_map(torch.add, grads, g)
+            loss = loss / accum
+            grads = tree_map(lambda g: g / accum, grads)
+        else:
+            loss, grads = loss_and_grads(cfg, params, batch)
+        with torch.no_grad():
+            new_params, new_opt = optimizer.apply(grads, state["opt"], params)
+        new_state = {"params": new_params, "opt": new_opt,
+                     "step": state["step"] + 1}
+        return new_state, {"loss": loss,
+                           "grad_norm": optimizer.last_grad_norm(new_opt)}
+
+    return train_step
+
+
 def make_serve_step(cfg: ModelConfig) -> Callable:
     model = build_model(cfg)
 

@@ -32,6 +32,13 @@ def dense_block_init(cfg, gen: torch.Generator, dtype) -> Params:
     }
 
 
+def dense_block_apply(cfg, p: Params, x: torch.Tensor, cos, sin
+                      ) -> torch.Tensor:
+    """The training forward of one block (no cache)."""
+    x = x + gqa_attend(p["attn"], rmsnorm(p["ln1"], x), cos, sin, causal=True)
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x), activation=cfg.activation)
+
+
 def dense_block_prefill(cfg, p: Params, x: torch.Tensor, cos, sin
                         ) -> Tuple[torch.Tensor, Params]:
     a, cache = gqa_attend(p["attn"], rmsnorm(p["ln1"], x), cos, sin,
@@ -48,6 +55,15 @@ def dense_block_decode(cfg, p: Params, x: torch.Tensor, cache: Params, pos: int
     x = x + a
     x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x), activation=cfg.activation)
     return x, cache
+
+
+def run_stack(cfg, blocks: List[Params], x: torch.Tensor, cos, sin
+              ) -> torch.Tensor:
+    """Run the layers in order (training forward).  The reference's ``remat``
+    knob has no effect: autograd keeps every layer's activations."""
+    for lp in blocks:
+        x = dense_block_apply(cfg, lp, x, cos, sin)
+    return x
 
 
 def run_stack_prefill(cfg, blocks: List[Params], x: torch.Tensor, cos, sin

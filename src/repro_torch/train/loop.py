@@ -1,0 +1,81 @@
+"""Training loop (counterpart of ``repro/train/loop.py``) on one device.
+
+Composition:
+  models.make_train_step  (loss + AdamW update, grad-accum aware)
+  data.SyntheticLM        (numpy batches, prefetch)
+  runtime.StragglerMonitor
+
+Each step's batch is copied to the device, the step is enqueued, and its
+metrics are read back as floats, which waits for the step to end: the
+host-clock ``step_time_s`` is the step's time.  Checkpointing (``ckpt_dir``)
+and meshes are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable, Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.models.model import ModelConfig, init_params, make_train_step
+from repro_torch.optim import AdamW
+from repro_torch.runtime import StragglerMonitor
+
+
+@dataclasses.dataclass
+class TrainerConfig:
+    steps: int = 100
+    log_every: int = 10
+    ckpt_every: int = 50
+    ckpt_dir: Optional[str] = None
+    ckpt_async: bool = True
+    seed: int = 0
+    straggler_threshold: float = 2.5
+
+
+class Trainer:
+    def __init__(self, cfg: ModelConfig, tc: TrainerConfig,
+                 optimizer: Optional[AdamW] = None, device="cuda") -> None:
+        if tc.ckpt_dir:
+            raise NotImplementedError("checkpointing is not ported yet")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.tc = tc
+        self.opt = optimizer or AdamW()
+        self.step_fn = make_train_step(cfg, self.opt)
+        self.straggler = StragglerMonitor(threshold=tc.straggler_threshold)
+        self.metrics_log: list = []
+
+    def init_state(self) -> Dict[str, Any]:
+        params = init_params(self.cfg, self.tc.seed, self.device)
+        return {"params": params, "opt": self.opt.init(params),
+                "step": torch.zeros((), dtype=torch.int32, device=self.device)}
+
+    def fit(self, batches: Iterator[Dict[str, np.ndarray]],
+            steps: Optional[int] = None,
+            hooks: Optional[Callable[[int, Dict], None]] = None
+            ) -> Dict[str, Any]:
+        steps = steps or self.tc.steps
+        state = self.init_state()
+        it = iter(batches)
+        for i in range(steps):
+            batch = {k: torch.from_numpy(np.asarray(v)).to(self.device)
+                     for k, v in next(it).items()}
+            t0 = time.perf_counter()
+            state, metrics = self.step_fn(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}
+            dt = time.perf_counter() - t0
+            self.straggler.record(i, dt)
+            metrics.update(step=i, step_time_s=dt)
+            self.metrics_log.append(metrics)
+            if hooks:
+                hooks(i, metrics)
+            if self.tc.log_every and (i % self.tc.log_every == 0):
+                print(f"step {i:6d} loss={metrics['loss']:.4f} "
+                      f"gnorm={metrics.get('grad_norm', 0):.3f} "
+                      f"dt={dt*1e3:.1f}ms", flush=True)
+        return state

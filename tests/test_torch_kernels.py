@@ -17,7 +17,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ops as jax_ops  # noqa: E402
 from repro.kernels import ref as jax_ref  # noqa: E402
+from repro_torch.kernels import dgc_topk as dgc_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
+from repro_torch.kernels import fused_adam as adam_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
 
@@ -90,9 +92,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         flash_kernel.flash_attention(q, q[:, :1], q[:, :1])
     with pytest.raises(ValueError, match="CUDA"):
         rmsnorm_kernel.rmsnorm(torch.zeros(3, 16), torch.ones(16))
+    vec, one = [torch.zeros(8) for _ in range(4)], torch.ones(1)
+    with pytest.raises(ValueError, match="CUDA"):
+        adam_kernel.fused_adam(*vec, one, one, one, b1=0.9, b2=0.95, eps=1e-8,
+                               wd=0.1)
+    with pytest.raises(ValueError, match="CUDA"):
+        dgc_kernel.dgc_threshold(torch.zeros(8), torch.ones(1))
     ops.flash_attention(q, q[:, :1], q[:, :1])
     ops.rmsnorm(torch.zeros(3, 16), torch.ones(16))
-    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0}
+    ops.fused_adam(*vec, lr=1e-3, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, c1=0.1,
+                   c2=0.05)
+    ops.dgc_mask(torch.zeros(8), 0.5)
+    assert ops.launch_counts() == {"flash_attention": 0, "rmsnorm": 0,
+                                   "fused_adam": 0, "dgc_mask": 0}
 
 
 @pytest.mark.parametrize("q_shape,k_shape,dtype,match", [
@@ -106,6 +118,174 @@ def test_flash_wrapper_rejects_bad_inputs(q_shape, k_shape, dtype, match):
     k = torch.zeros(k_shape, dtype=dtype)
     with pytest.raises((ValueError, TypeError), match=match):
         flash_kernel.flash_attention(q, k, k)
+
+
+ADAM_NS = [100, 1024, 5000, 1 << 14]       # as tests/test_kernels.py
+ADAM_KW = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, c1=0.2, c2=0.1)
+ADAM_ATOL = (1e-5, 1e-6, 1e-6)              # p, m, v: tests/test_kernels.py's
+DGC_CASES = [((100,), 0.1), ((123, 45), 0.01), ((4096,), 0.001)]
+# gradients through the kernels' Functions against autograd of the plain
+# versions: f32 sums in another order (f32), bf16 rounding of the inputs and
+# outputs (bf16); plus, in bf16, one ulp of the reference (2^-7 |x|), by
+# which two bf16 roundings of f32 sums that differ in the last bits can
+# differ where a gradient sums many rows (dv of early keys, RMSNorm's dw)
+GRAD_ATOL = {"float32": 5e-3, "bfloat16": 5e-2}
+GRAD_RTOL = {"float32": 0.0, "bfloat16": 2.0 ** -7}
+
+
+def _grad_close(a, b, dtype) -> bool:
+    a, b = a.float(), b.float()
+    return bool(((a - b).abs() <= GRAD_ATOL[dtype] + GRAD_RTOL[dtype] * b.abs()).all())
+
+
+def _adam_inputs(n: int):
+    rng = np.random.default_rng(1)
+    p, g = rng.standard_normal(n), rng.standard_normal(n)
+    m = rng.standard_normal(n) * 0.1
+    v = np.abs(rng.standard_normal(n)) * 0.01
+    return [a.astype(np.float32) for a in (p, g, m, v)]
+
+
+@pytest.mark.parametrize("n", ADAM_NS)
+def test_fused_adam_matches_jax(n):
+    """``fused_adam_ref`` and ``ops.fused_adam`` (CPU) against the JAX Pallas
+    kernel (interpret mode) and the JAX oracle, with tests/test_kernels.py's
+    tolerances."""
+    arrs = _adam_inputs(n)
+    want = jax_ops.fused_adam(*map(jnp.asarray, arrs), **ADAM_KW)
+    want_ref = jax_ref.fused_adam_ref(*map(jnp.asarray, arrs), **ADAM_KW)
+    for got in (ref.fused_adam_ref(*map(torch.from_numpy, arrs), **ADAM_KW),
+                ops.fused_adam(*map(torch.from_numpy, arrs), **ADAM_KW)):
+        for a, b, c, atol in zip(got, want, want_ref, ADAM_ATOL):
+            assert a.dtype == torch.float32 and a.shape == (n,)
+            np.testing.assert_allclose(_f32(a), _f32(b), atol=atol)
+            np.testing.assert_allclose(_f32(a), _f32(c), atol=atol)
+
+
+@pytest.mark.parametrize("shape,ratio", DGC_CASES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dgc_mask_matches_jax(shape, ratio, dtype):
+    """``dgc_topk_ref`` and ``ops.dgc_mask`` (CPU) against the JAX oracle and
+    the JAX Pallas kernel (interpret mode): exact, ``count >= k``."""
+    jg, tg = _both(np.random.default_rng(3).standard_normal(shape, np.float32),
+                   dtype)
+    want, jk, jthr = jax_ref.dgc_topk_ref(jg, ratio)
+    got, k, thr = ref.dgc_topk_ref(tg, ratio)
+    assert k == jk and float(thr) == float(jthr)
+    np.testing.assert_array_equal(_f32(got), _f32(want))
+    jsparse, jcount = jax_ops.dgc_mask(jg, jthr)
+    for threshold in (thr, float(thr)):
+        sparse, count = ops.dgc_mask(tg, threshold)
+        assert sparse.dtype == tg.dtype and sparse.shape == tg.shape
+        np.testing.assert_array_equal(_f32(sparse), _f32(jsparse))
+        np.testing.assert_array_equal(_f32(sparse), _f32(want))
+        assert int(count) == int(jcount) >= k
+
+
+def _grad_inputs(shapes, dtype, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .to(DTYPES[dtype][1]) for s in shapes]
+
+
+def _autograd(fn, inputs, dout):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    return torch.autograd.grad(fn(*leaves), leaves, dout)
+
+
+@pytest.mark.parametrize("B,H,KH,S,D", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_bwd_matches_autograd(monkeypatch, B, H, KH, S, D,
+                                              dtype, causal):
+    """``ref.flash_attention_bwd`` (the Function's backward) against autograd
+    through ``flash_attention_ref``, in query chunks of 7 rows (S % 7 != 0)
+    so the chunking and the causal key cut are exercised."""
+    q, k, v, do = _grad_inputs([(B, H, S, D), (B, KH, S, D), (B, KH, S, D),
+                                (B, H, S, D)], dtype, 4)
+    monkeypatch.setattr(ref, "BWD_SCORE_ELEMS", B * H * S * 7)
+    got = ref.flash_attention_bwd(q, k, v, do, causal=causal)
+    want = _autograd(lambda *a: ref.flash_attention_ref(*a, causal=causal),
+                     (q, k, v), do)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_allclose(_f32(a), _f32(b), atol=GRAD_ATOL[dtype])
+
+
+@pytest.mark.parametrize("shape", RMS_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_matches_autograd(shape, dtype):
+    x, dy = _grad_inputs([shape, shape], dtype, 5)
+    w = _grad_inputs([(shape[-1],)], "float32", 6)[0]
+    got = ref.rmsnorm_bwd(x, w, dy)
+    want = _autograd(ref.rmsnorm_ref, (x, w), dy)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_allclose(_f32(a), _f32(b), atol=GRAD_ATOL[dtype],
+                                   rtol=GRAD_RTOL[dtype])
+
+
+def test_functions_launch_forward_only_and_pass_gradients(monkeypatch):
+    """FlashAttentionFn and RMSNormFn with their kernel wrappers replaced by
+    the plain versions (there is no kernel on the CPU): gradients equal
+    autograd of the plain versions, the backward calls no forward wrapper,
+    and both run under ``torch.inference_mode``."""
+    calls = []
+
+    def fake(plain):
+        def run(*args, **kw):
+            calls.append(plain.__name__)
+            return plain(*args, **kw)
+        return run
+
+    monkeypatch.setattr(flash_kernel, "flash_attention", fake(ref.flash_attention_ref))
+    monkeypatch.setattr(rmsnorm_kernel, "rmsnorm", fake(ref.rmsnorm_ref))
+    # q, k, v as the model passes them: (B, S, H, D) tensors viewed as (B, H, S, D)
+    q, k, v = (t.transpose(1, 2) for t in _grad_inputs(
+        [(2, 12, 4, 16), (2, 12, 2, 16), (2, 12, 2, 16)], "float32", 7))
+    x, w = _grad_inputs([(2, 12, 16), (16,)], "float32", 8)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v, x, w)]
+    out = (flash_kernel.FlashAttentionFn.apply(*leaves[:3], True).sum(1)
+           + rmsnorm_kernel.RMSNormFn.apply(leaves[3], leaves[4], 1e-6)
+           ).square().sum()
+    assert calls == ["flash_attention_ref", "rmsnorm_ref"]
+    got = torch.autograd.grad(out, leaves)
+    assert calls == ["flash_attention_ref", "rmsnorm_ref"]
+    want = _autograd(lambda q, k, v, x, w: (
+        ref.flash_attention_ref(q, k, v).sum(1)
+        + ref.rmsnorm_ref(x, w)).square().sum(), (q, k, v, x, w), None)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_f32(a), _f32(b), atol=1e-4 * _f32(b).max())
+    with torch.inference_mode():
+        y = flash_kernel.FlashAttentionFn.apply(q, k, v, False)
+        z = rmsnorm_kernel.RMSNormFn.apply(x, w, 1e-6)
+    np.testing.assert_array_equal(_f32(y), _f32(ref.flash_attention_ref(
+        q, k, v, causal=False)))
+    np.testing.assert_array_equal(_f32(z), _f32(ref.rmsnorm_ref(x, w)))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("short_m", "one length"), ("f64", "float32"), ("lr_shape", "one element"),
+    ("aliased", "distinct"), ("strided", "contiguous")])
+def test_fused_adam_wrapper_rejects_bad_inputs(monkeypatch, case, match):
+    """The wrapper's checks, ahead of the device check (moved out of the way
+    by pretending every tensor is on CUDA)."""
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    p, g, m, v = (torch.zeros(8) for _ in range(4))
+    lr = c1 = c2 = torch.ones(1)
+    if case == "short_m":
+        m = torch.zeros(7)
+    elif case == "f64":
+        g = g.double()
+    elif case == "lr_shape":
+        lr = torch.ones(2)
+    elif case == "aliased":
+        v = m
+    elif case == "strided":
+        p, g, m, v = (torch.zeros(16)[::2] for _ in range(4))
+    with pytest.raises((ValueError, TypeError), match=match):
+        adam_kernel.fused_adam(p, g, m, v, lr, c1, c2, b1=0.9, b2=0.95,
+                               eps=1e-8, wd=0.1)
 
 
 # ---------------------------------------------------------------- on the card
@@ -147,3 +327,78 @@ def test_rmsnorm_kernel_on_gpu(cuda, shape, dtype):
     assert rmsnorm_kernel.launches == before + 1
     want = ref.rmsnorm_ref(x, w)
     assert (got.float() - want.float()).abs().max().item() <= RMS_ATOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", ADAM_NS + [(1 << 20) + 3])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_fused_adam_kernel_on_gpu(cuda, n, offset):
+    """The kernel against the plain version, on vectors 16-byte aligned
+    (offset 0) and not (offset 1: the scalar loop); updated in place."""
+    arrs = [torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), a]))
+            .to(cuda)[offset:] for a in _adam_inputs(n)]
+    want = ref.fused_adam_ref(*arrs, **ADAM_KW)
+    p, m, v = (arrs[i].clone() for i in (0, 2, 3))
+    before = adam_kernel.launches
+    got = ops.fused_adam(p, arrs[1], m, v, **ADAM_KW)
+    torch.cuda.synchronize()
+    assert adam_kernel.launches == before + 1
+    assert got[0] is p and got[1] is m and got[2] is v
+    for a, b, atol in zip(got, want, ADAM_ATOL):
+        assert (a - b).abs().max().item() <= atol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,ratio", DGC_CASES + [((32000, 2048), 0.01)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_dgc_kernel_on_gpu(cuda, shape, ratio, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    g = torch.randn(shape, generator=gen, device=cuda).to(DTYPES[dtype][1])
+    want, k, thr = ref.dgc_topk_ref(g, ratio)
+    before = dgc_kernel.launches
+    got, count = ops.dgc_mask(g, thr)
+    torch.cuda.synchronize()
+    assert dgc_kernel.launches == before + 1
+    plain, plain_count = ref.dgc_mask_ref(g, thr)
+    assert torch.equal(got, want) and torch.equal(got, plain)
+    assert int(count) == int(plain_count) >= k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KH,S,D", FLASH_SHAPES + [(2, 32, 4, 1024, 64)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_grad_on_gpu(cuda, B, H, KH, S, D, dtype, causal):
+    """Gradients through FlashAttentionFn against autograd of the plain
+    version; the backward launches no kernel."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v, do = (torch.randn(s, generator=gen, device=cuda).to(DTYPES[dtype][1])
+                   for s in ((B, H, S, D), (B, KH, S, D), (B, KH, S, D), (B, H, S, D)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_kernel.launches
+    out = ops.flash_attention(*leaves, causal=causal)
+    got = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert flash_kernel.launches == before + 1
+    want = _autograd(lambda *a: ref.flash_attention_ref(*a, causal=causal),
+                     (q, k, v), do)
+    for a, b in zip(got, want):
+        assert _grad_close(a, b, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", RMS_SHAPES + [(2, 4096, 2048)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_grad_on_gpu(cuda, shape, dtype):
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    x, dy = (torch.randn(shape, generator=gen, device=cuda).to(DTYPES[dtype][1])
+             for _ in range(2))
+    w = torch.randn(shape[-1], generator=gen, device=cuda)
+    leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    before = rmsnorm_kernel.launches
+    got = torch.autograd.grad(ops.rmsnorm(*leaves), leaves, dy)
+    torch.cuda.synchronize()
+    assert rmsnorm_kernel.launches == before + 1
+    want = _autograd(ref.rmsnorm_ref, (x, w), dy)
+    for a, b in zip(got, want):
+        assert _grad_close(a, b, dtype)

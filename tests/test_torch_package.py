@@ -4,6 +4,7 @@ launcher runs on the CPU, and the kernel build keys, logs and reports.
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -18,8 +19,10 @@ torch.set_num_threads(1)
 from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.launch import train as launch_train  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.serve import ServeEngine  # noqa: E402
+from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -38,7 +41,11 @@ def test_importing_every_module_loads_no_jax():
                      or m == "repro" or m.startswith("repro."))
         print(len(names), bad)
         assert not bad, bad
-        assert len(names) >= 15, names
+        assert len(names) >= 33, names
+        assert {"repro_torch.train.loop", "repro_torch.optim.adamw",
+                "repro_torch.kernels.fused_adam", "repro_torch.kernels.dgc_topk",
+                "repro_torch.data.pipeline", "repro_torch.runtime.fault",
+                "repro_torch.launch.train"} <= set(names), names
     """)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -56,7 +63,7 @@ def _imports(path: Path):
 
 def test_no_source_imports_jax_or_the_jax_package():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-    assert len(files) > 15
+    assert len(files) > 33
     for path in files:
         for mod in _imports(path):
             root = mod.split(".")[0]
@@ -73,6 +80,34 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         ServeEngine(cfg, params)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         launch_serve.main(["--smoke"])
+
+
+def test_train_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("tinyllama-1.1b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(cfg, TrainerConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_train.main(["--smoke"])
+    Trainer(cfg, TrainerConfig(), device="cpu")
+
+
+def test_train_launcher_trains_on_cpu(tmp_path):
+    """``python -m repro_torch.launch.train --smoke --device cpu`` as a user
+    runs it: a few steps, the loss printed, the metrics written."""
+    out = tmp_path / "metrics.json"
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    run = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--smoke", "--device",
+         "cpu", "--steps", "4", "--batch", "2", "--seq", "16", "--log-every", "2",
+         "--metrics-out", str(out)],
+        env=env, cwd=tmp_path, capture_output=True, text=True, timeout=300)
+    assert run.returncode == 0, run.stdout + run.stderr
+    assert "step      0 loss=" in run.stdout and "step      2 loss=" in run.stdout
+    assert "over 4 steps (device=cpu)" in run.stdout
+    metrics = json.loads(out.read_text())
+    assert [m["step"] for m in metrics] == [0, 1, 2, 3]
+    assert all(m["loss"] > 0 and m["grad_norm"] > 0 for m in metrics)
 
 
 def test_launcher_serves_on_cpu(capsys):
