@@ -8,22 +8,27 @@
    once), and Triton's import;
 3. kernels: each kernel against its plain PyTorch version on the card over the
    JAX package's kernel-test sweeps (``tests/test_kernels.py``) and the
-   main-path shapes; the gradients through the flash-attention and RMSNorm
+   main-path shapes; flash attention also over the tensor-core kernel's edges
+   (ragged S, group 8, D 80 and 128, (B, S, H, D) tensors as transposed
+   views) and the inputs that must take the CUDA-core kernel, printing which
+   kernel each case took; the gradients through the flash-attention and RMSNorm
    ``autograd.Function``s against autograd of the plain versions; then each
    kernel, its plain version and one PyTorch library call timed at the
    main-path shapes: device time from torch.profiler (``ms``) and time per
    back-to-back call from CUDA events (``call_ms``, host launch cost
-   included);
+   included); flash attention's CUDA-core kernel timed on the same inputs
+   as its tensor-core kernel;
 4. serve: tinyllama-1.1b at full width in bf16 from a seeded generator, four
    requests of 128-512 prompt tokens and 32 new tokens each through
    ``ServeEngine.generate``, with the kernels' launch counts read around that
-   one run (after one short warm-up run); then each generated token checked
+   one run (after one short warm-up run), every flash launch on the
+   tensor-core kernel; then each generated token checked
    against a fresh prefill of the tokens before it, and decode-step logits
    against a fresh prefill's (see serve_phase for the weights this uses);
 5. train: tinyllama-1.1b at full width and depth in bf16, sequence 4096,
    micro-batch 2, ``SyntheticLM`` batches, through ``Trainer.fit`` with
    ``AdamW(fused=True)``: one warm-up step and 3 timed steps, launch counts
-   read per step; every param's gradient finite and nonzero; the per-leaf
+   (and flash's per kernel) read per step; every param's gradient finite and nonzero; the per-leaf
    and the fused update on the same gradients and state, timed and held
    against each other; the DGC threshold kernel on the unembedding's
    gradient; the loss falling over 5 steps on one batch;
@@ -51,6 +56,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import Prefetcher, make_batch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.models import (build_model, init_cache,  # noqa: E402
                                 init_params, loss_and_grads)
@@ -64,6 +70,13 @@ PEAK_F32_FLOPS = 67e12        # H100 SXM f32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 FLASH_SWEEP = [(1, 2, 1, 128, 64), (2, 4, 2, 256, 128), (1, 8, 2, 96, 80),
                (1, 1, 1, 64, 128)]                   # (B, H, KH, S, D)
+# the tensor-core kernel's edges: S not a multiple of its 128-row tiles,
+# GQA group 8, D 80 (run as 128) and 128; forward only
+FLASH_EDGES = [(1, 8, 1, 300, 64), (2, 32, 4, 1024, 64), (1, 4, 1, 200, 80),
+               (1, 2, 2, 130, 128)]
+# bf16 inputs that the CUDA-core kernel takes: D % 8 != 0, and rows padded to
+# D + 4 elements (an S stride that is no multiple of 8)
+FLASH_SCALAR_BF16 = [((1, 4, 2, 100, 12), 0), ((2, 4, 1, 96, 64), 4)]
 RMS_SWEEP = [(4, 64), (3, 5, 300), (16, 1024), (1, 7)]
 ADAM_SWEEP = [100, 1024, 5000, 1 << 14]
 DGC_SWEEP = [((100,), 0.1), ((123, 45), 0.01), ((4096,), 0.001)]
@@ -191,30 +204,84 @@ def build_phase() -> None:
           f"{time.perf_counter() - t1:.2f}s (its kernels compile at first launch)")
     for path in libs.values():
         for line in path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {path.stem.split('-')[0]}:", line.strip())
+            if any(w in line for w in ("registers", "spill", "Performance", "setmaxnreg")):
+                print(f"  ptxas {path.stem.split('-')[0]}:", line.strip()[:160])
 
 
 def _flash_entry(gen, cfg, batch: int, seq: int) -> dict:
     """Flash attention at a main-path shape, as the model passes it: bf16
-    (B, S, H, hd) views, causal; checked, then timed."""
+    (B, S, H, hd) views, causal; checked (the CUDA-core kernel too, called
+    directly), then both kernels, the plain version and SDPA timed."""
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim or cfg.d_model // cfg.n_heads
     bf = torch.bfloat16
     q = randn(gen, batch, seq, H, D, dtype=bf).transpose(1, 2)
     k = randn(gen, batch, seq, KH, D, dtype=bf).transpose(1, 2)
     v = randn(gen, batch, seq, KH, D, dtype=bf).transpose(1, 2)
-    err = max_err(ops.flash_attention(q, k, v), ref.flash_attention_ref(q, k, v))
-    if not err <= FLASH_ATOL[bf]:
-        fail(f"flash at {tuple(q.shape)}: {err}")
+    want = ref.flash_attention_ref(q, k, v)
+    err = max_err(ops.flash_attention(q, k, v), want)
+    scalar_err = max_err(flash_kernel.flash_attention_scalar(q, k, v), want)
+    variant = flash_kernel._variant(q, k, v)
+    if not (err <= FLASH_ATOL[bf] and scalar_err <= FLASH_ATOL[bf] and variant == "wgmma"):
+        fail(f"flash at {tuple(q.shape)}: {err} ({variant}), CUDA-core kernel {scalar_err}")
+    del want
     pairs = batch * H * seq * (seq + 1) // 2            # causal (q, k) pairs
     nbytes = 2 * (2 * batch * H * seq * D + 2 * batch * KH * seq * D)
-    return {"max_abs_err": err,
-            **timings(lambda: ops.flash_attention(q, k, v),
-                      lambda: ref.flash_attention_ref(q, k, v),
-                      lambda: F.scaled_dot_product_attention(
-                          q, k, v, is_causal=True, enable_gqa=True)),
-            **bound(4 * D * pairs, nbytes),
-            "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"}
+    entry = {"max_abs_err": err,
+             **timings(lambda: ops.flash_attention(q, k, v),
+                       lambda: ref.flash_attention_ref(q, k, v),
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, is_causal=True, enable_gqa=True)),
+             "scalar_ms": device_ms(lambda: flash_kernel.flash_attention_scalar(q, k, v), 5),
+             "scalar_max_abs_err": scalar_err,
+             **bound(4 * D * pairs, nbytes),
+             "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"}
+    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+    entry["ratio_to_library"] = entry["ms"] / entry["library_ms"]
+    print(f"kernels: flash at {entry['shape']}: tensor-core kernel {entry['ms']:.5f} ms "
+          f"device ({entry['share_of_bound']:.1%} of its {entry['bound_ms']:.5f} ms bound, "
+          f"by {entry['bound_by']}), CUDA-core kernel {entry['scalar_ms']:.5f} ms, SDPA "
+          f"{entry['library_ms']:.5f} ms (ratio {entry['ratio_to_library']:.3f}), plain "
+          f"{entry['plain_ms']:.4f} ms")
+    return entry
+
+
+def _flash_inputs(gen, B, H, KH, S, D, dt, layout: str, pad: int = 0):
+    """q, k, v as (B, H, S, D): contiguous ("bhsd"), (B, S, H, D) tensors
+    viewed ("bshd"), or rows of D + pad elements cut to D ("padded")."""
+    if layout == "bshd":
+        return tuple(randn(gen, B, S, h, D, dtype=dt).transpose(1, 2) for h in (H, KH, KH))
+    return tuple(randn(gen, B, h, S, D + pad, dtype=dt)[..., :D] for h in (H, KH, KH))
+
+
+def flash_sweep(gen, shapes) -> float:
+    """Flash attention against its plain version over ``shapes`` in f32 and
+    bf16, causal and not, contiguous and as (B, S, H, D) views, and over the
+    bf16 inputs that the CUDA-core kernel takes; prints the kernel each case
+    took and fails unless f32 and those bf16 inputs took "scalar" and every
+    other bf16 input "wgmma".  Returns the largest error."""
+    cases = [(s, dt, c, layout, 0) for dt in (torch.float32, torch.bfloat16)
+             for c in (True, False) for s in shapes for layout in ("bhsd", "bshd")]
+    cases += [(s, torch.bfloat16, c, "padded", pad) for s, pad in FLASH_SCALAR_BF16
+              for c in (True, False)]
+    worst, bad, took = 0.0, [], {}
+    for (B, H, KH, S, D), dt, causal, layout, pad in cases:
+        q, k, v = _flash_inputs(gen, B, H, KH, S, D, dt, layout, pad)
+        variant = flash_kernel._variant(q, k, v)
+        want = "wgmma" if dt == torch.bfloat16 and D % 8 == 0 and pad % 8 == 0 else "scalar"
+        err = max_err(ops.flash_attention(q, k, v, causal=causal),
+                      ref.flash_attention_ref(q, k, v, causal=causal))
+        worst = max(worst, err)
+        name = f"{(B, H, KH, S, D)} {str(dt)[6:]} causal={causal} {layout}"
+        took.setdefault(variant, []).append(name)
+        if not (err <= FLASH_ATOL[dt] and variant == want):
+            bad.append(f"flash {name}: {err} on {variant} (want {want})")
+    sync()
+    for variant, names in sorted(took.items()):
+        print(f"kernels: flash took {variant!r} for {len(names)} cases: " + "; ".join(names))
+    if bad:
+        fail("flash kernel disagrees with its plain version or took the wrong kernel: "
+             + "; ".join(bad))
+    return worst
 
 
 def _rms_entry(gen, cfg, rows: int) -> dict:
@@ -234,17 +301,9 @@ def kernel_phase(cfg, batch: int, seq: int) -> list:
     H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim or cfg.d_model // cfg.n_heads
     train_flash = (TRAIN_BATCH, H, KH, TRAIN_SEQ, D)
     bad = []
-    worst = {}
+    worst = {"flash_attention": flash_sweep(
+        gen, FLASH_SWEEP + FLASH_EDGES + [(batch, H, KH, seq, D), train_flash])}
     for dt in (torch.float32, torch.bfloat16):
-        for causal in (True, False):
-            for B, h, kh, S, d in FLASH_SWEEP + [(batch, H, KH, seq, D), train_flash]:
-                q, k, v = randn(gen, B, h, S, d, dtype=dt), \
-                    randn(gen, B, kh, S, d, dtype=dt), randn(gen, B, kh, S, d, dtype=dt)
-                err = max_err(ops.flash_attention(q, k, v, causal=causal),
-                              ref.flash_attention_ref(q, k, v, causal=causal))
-                worst["flash_attention"] = max(worst.get("flash_attention", 0), err)
-                if not err <= FLASH_ATOL[dt]:
-                    bad.append(f"flash {(B, h, kh, S, d)} {dt} causal={causal}: {err}")
         for shape in RMS_SWEEP + [(batch * seq, cfg.d_model), (batch, 1, cfg.d_model),
                                   (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)]:
             x, w = randn(gen, *shape, dtype=dt), randn(gen, shape[-1])
@@ -260,7 +319,8 @@ def kernel_phase(cfg, batch: int, seq: int) -> list:
     grad_phase(gen, train_flash, (TRAIN_BATCH, TRAIN_SEQ, cfg.d_model))
 
     flash = {"name": "flash_attention", "route": "cuda",
-             "source": "src/repro_torch/csrc/flash_attention.cu",
+             "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+             "scalar_source": "src/repro_torch/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:31",
              **_flash_entry(gen, cfg, batch, seq),
              "train_shape": _flash_entry(gen, cfg, TRAIN_BATCH, TRAIN_SEQ)}
@@ -418,6 +478,7 @@ def serve_phase(cfg, kernels: list) -> int:
     ops.reset_launch_counts()
     results = engine.generate(reqs)
     counts = ops.launch_counts()
+    by_variant = dict(flash_kernel.launches_by_variant)
 
     st = engine.stats
     steps = st["decode_steps"]
@@ -429,10 +490,12 @@ def serve_phase(cfg, kernels: list) -> int:
     per_fwd = 2 * cfg.n_layers + 1
     want = {"flash_attention": cfg.n_layers, "rmsnorm": per_fwd * (1 + steps),
             "fused_adam": 0, "dgc_mask": 0}
-    print(f"serve: launches {counts}; expected {want} "
-          f"({cfg.n_layers} flash per prefill, {per_fwd} rmsnorm per forward)")
-    if counts != want:
-        fail(f"launch counts {counts} != {want}")
+    want_variant = {"wgmma": cfg.n_layers, "scalar": 0}
+    print(f"serve: launches {counts}, flash by kernel {by_variant}; expected {want}, "
+          f"{want_variant} ({cfg.n_layers} flash per prefill, all on the tensor-core "
+          f"kernel, {per_fwd} rmsnorm per forward)")
+    if counts != want or by_variant != want_variant:
+        fail(f"launch counts {counts} {by_variant} != {want} {want_variant}")
     for kern in kernels:
         kern.setdefault("launches_by_path", {})["serve"] = counts[kern["name"]]
     for r in results:
@@ -498,12 +561,14 @@ def train_phase(cfg, kernels: list, n_params: int) -> None:
     H, D = cfg.n_heads, cfg.head_dim or cfg.d_model // cfg.n_heads
     per_step = {"flash_attention": L, "rmsnorm": 2 * L + 1, "fused_adam": 1,
                 "dgc_mask": 0}
+    per_step_variant = {"wgmma": L, "scalar": 0}
     trainer = Trainer(cfg, TrainerConfig(steps=TRAIN_STEPS, log_every=0, seed=0),
                       optimizer=AdamW(fused=True), device=DEV)
-    step_counts = []
+    step_counts, step_variants = [], []
 
     def hook(i, metrics):          # the counts of step i, then zero for i + 1
         step_counts.append(ops.launch_counts())
+        step_variants.append(dict(flash_kernel.launches_by_variant))
         ops.reset_launch_counts()
 
     torch.cuda.reset_peak_memory_stats()
@@ -529,9 +594,12 @@ def train_phase(cfg, kernels: list, n_params: int) -> None:
           f"clock ending in a sync), {tokens / step_s:.1f} tokens/s, mfu "
           f"{flops / step_s / PEAK_BF16_FLOPS:.4f} ((6 N tokens + causal attention "
           f"{attn_flops:.3g}) / step time / 989e12)")
-    print(f"train: launches per step {step_counts}; expected {per_step} each")
-    if any(c != per_step for c in step_counts) or len(step_counts) != TRAIN_STEPS:
-        fail(f"train launch counts per step {step_counts} != {per_step}")
+    print(f"train: launches per step {step_counts}, flash by kernel {step_variants}; "
+          f"expected {per_step}, {per_step_variant} each")
+    if (any(c != per_step for c in step_counts) or len(step_counts) != TRAIN_STEPS
+            or any(c != per_step_variant for c in step_variants)):
+        fail(f"train launch counts per step {step_counts} {step_variants} != "
+             f"{per_step} {per_step_variant}")
     if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in log):
         fail("non-finite loss or grad norm in training")
 
@@ -571,6 +639,9 @@ def train_phase(cfg, kernels: list, n_params: int) -> None:
     for kern in kernels:
         kern.setdefault("launches_by_path", {})["train"] = run_counts[kern["name"]]
         kern["launches_per_train_step"] = per_step[kern["name"]]
+    flash = next(kern for kern in kernels if kern["name"] == "flash_attention")
+    flash["launches_by_variant"] = {v: sum(c[v] for c in step_variants)
+                                    for v in per_step_variant}
     del grads, state, params, holder
     loss_falls_phase(cfg, trainer)
 
@@ -769,7 +840,8 @@ def main() -> None:
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms", "shape",
             "launches_by_path", "launches_per_train_step"]
-    extra = ["train_shape", "library_call"]
+    extra = ["scalar_ms", "scalar_max_abs_err", "share_of_bound", "ratio_to_library",
+             "scalar_source", "launches_by_variant", "train_shape", "library_call"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))

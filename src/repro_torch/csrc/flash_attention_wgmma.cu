@@ -1,0 +1,657 @@
+// Flash attention forward on Hopper's tensor cores (sm_90a), bf16, plain C
+// interface for ctypes.
+//
+// Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:31
+// (_flash_kernel; wrapper flash_attention :112) for the inputs that
+// repro_torch/kernels/flash_attention.py:_variant sends here: bf16, head dim a
+// multiple of 8 up to 128, 16-byte-aligned base pointers, b/h/s strides that
+// are positive multiples of 8 elements.  The rest (f32, odd D, unaligned
+// strides) keeps the CUDA-core kernel in flash_attention.cu.  It computes what
+// _flash_kernel computes: causal or full GQA attention (q head h reads kv head
+// h / (H / KH)) with an online softmax, f32 running max, denominator and
+// accumulator, scores never written to device memory, output
+// acc / max(l, 1e-20).
+//
+// What bounds it on the H100, at tinyllama-1.1b's shapes (H 32, KH 4, D 64,
+// causal, bf16): the prefill (B 4, S 512) does 4.3e9 FLOPs for 19 MB of
+// q/k/v/o, ~230 FLOP per byte, just under the card's bf16 ridge (~295), so
+// its floor is the bytes (5.6 us) with the FLOPs close behind (4.3 us);
+// training (B 2, S 4096) does 1.4e11 FLOPs for 75 MB, ~1800 FLOP per byte, so
+// the tensor cores bound it (0.139 ms at 989 TFLOP/s).  Either way the
+// products must run on the tensor cores; the CUDA-core kernel's 67 TFLOP/s
+// ceiling kept it at 2% of the bound.  At D = 64 the softmax is the other
+// limit: one exp2 per score on the SFU (16 per clock per SM) costs as much
+// time as the two products on the tensor cores, so the design keeps the
+// softmax lean and overlaps it with the products.  The design:
+//   * one block of three warpgroups per SM, persistent: two consumers of 64
+//     query rows each and one producer, walking work items of 128 query rows
+//     of one (batch, q head), heaviest first under `causal`, in a zig-zag
+//     over the blocks so that their loads even out.  setmaxnreg moves
+//     registers from the producer (40) to the consumers (232), which hold a
+//     64 x 128 f32 score tile, the 64 x D f32 accumulator and P;
+//   * one producer thread issues TMA loads: Q once per item (single
+//     buffer, with full and empty barriers, the next item's Q prefetched into
+//     L2), K and V tiles of 128 keys into a 3-stage ring in shared memory
+//     with full barriers for K and V (mbarrier transaction counts) and an
+//     empty barrier that the 8 consumer warps arrive on once P.V has read
+//     the stage.  It runs ahead into the next item while the consumers finish
+//     the current one.  The tensor maps are 4-D (D, S, heads, B) over the
+//     caller's strides, so (B, S, H, D) tensors viewed as (B, H, S, D) load
+//     without a copy; TMA zero-fills past S and past D, so D <= 64 runs as
+//     one 64-column 128-byte-swizzled atom and 64 < D <= 128 (D = 80 too)
+//     as two;
+//   * S = Q.K^T: wgmma m64n128k16, A (Q) and B (K) both K-major from the
+//     swizzled shared memory, D / 16 steps, f32 accumulation;
+//   * the softmax stays in registers, in the log2 domain: exp2 (the SFU's
+//     ex2.approx) of s * log2(e)/sqrt(D) - m as one FMA; each row is spread
+//     over 4 threads of a quad, whose max and sum meet through two
+//     xor-shuffles; only tiles that cross the diagonal or S carry masking
+//     code (a template parameter), one compare per score; a row with no
+//     valid key yet subtracts 0 instead of -inf, so it gives 0 and not NaN;
+//   * O += P.V: P is rounded to bf16 in registers, where the score
+//     accumulator's fragment layout is already wgmma's A-register layout; V
+//     is B from shared memory, MN-major (D contiguous) through the transpose
+//     bit; O stays f32;
+//   * each iteration issues S_t = Q.K_t^T and then O += P_{t-1}.V_{t-1},
+//     waits for S_t only and runs its softmax while the tensor cores do P.V;
+//     the two consumer warpgroups issue freely and overlap each other (making
+//     them take turns, as FA3 does, measured slower here);
+//   * under `causal` the key loop stops at the item's diagonal tile;
+//   * the output is written as bf16 pairs straight from the accumulator
+//     registers through the output strides, rows >= S and columns >= D
+//     masked.
+// ptxas (CUDA 12.9, sm_90a): 168 registers at launch for both head-dim
+// buckets (the consumers run under setmaxnreg 232), no spills; chip_smoke.py
+// prints the build log's lines.
+
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <limits.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kBlockM = 128;                   // query rows per block
+constexpr int kBlockN = 128;                   // keys per K/V tile
+constexpr int kStages = 3;                     // depth of the K/V ring
+constexpr int kConsumers = 2;                  // consumer warpgroups, 64 rows each
+constexpr int kThreads = 128 * (kConsumers + 1);
+constexpr int kAtomCols = 64;                  // bf16 columns in one 128-byte row
+constexpr uint32_t kAtomBytes = 128 * 128;     // 128 rows x 128 bytes
+static_assert(kBlockM == 128 && kBlockN == 128, "an atom holds 128 rows of a tile");
+
+// Shared memory, from a 1024-byte-aligned base: Q, the K ring, the V ring
+// (each tile DMAX / 64 atoms), then the barriers full_q, empty_q,
+// full_k[kStages], full_v[kStages], empty[kStages].
+template <int DMAX>
+struct Smem {
+  static constexpr int kAtoms = DMAX / kAtomCols;
+  static constexpr uint32_t kTile = kAtoms * kAtomBytes;
+  static constexpr uint32_t kQ = 0;
+  static constexpr uint32_t kK = kQ + kTile;
+  static constexpr uint32_t kV = kK + kStages * kTile;
+  static constexpr uint32_t kBar = kV + kStages * kTile;
+  static constexpr uint32_t kBytes = kBar + 8 * (2 + 3 * kStages) + 1024;  // + alignment
+};
+
+struct Strides {  // in elements; the last (D) stride is 1
+  long long b, h, s;
+};
+
+struct Ring {  // a position in the K/V ring: stage and the parity of its use
+  int stage = 0, phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Wait until the barrier's phase of this parity has completed.  A wait that
+// lasts ~10 s (an arrival that never comes) traps, so the launch fails with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long start = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - start > 20000000000LL) __trap();
+}
+
+// One box of the 4-D tensor map at (d, s, head, batch) into L2 only.
+__device__ __forceinline__ void tma_prefetch_l2(const CUtensorMap* map, int d, int s, int head,
+                                                int batch) {
+  asm volatile("cp.async.bulk.prefetch.tensor.4d.L2.global [%0, {%1, %2, %3, %4}];" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(d), "r"(s), "r"(head), "r"(batch)
+               : "memory");
+}
+
+// One box of the 4-D tensor map at (d, s, head, batch) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d, int s, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d), "r"(s), "r"(head), "r"(batch)
+      : "memory");
+}
+
+// wgmma's shared-memory matrix descriptor for a 128-byte-swizzled layout:
+// start address, leading and stride byte offsets (16-byte units), swizzle mode.
+// The address is the low 14 bits, so adding (bytes >> 4) moves it within
+// shared memory.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+template <int N>  // until at most N committed groups are pending
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads of wgmma's accumulator registers above
+// the wait that makes them valid.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (64 x 128, f32) = A . B (+ d if accumulate): A 64 x 16 and B 16 x 128 in
+// shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_m64n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A . B: A 64 x 16 bf16 in registers (the accumulator's
+// fragment layout), B 16 x 64 in shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d (64 x 128, f32) += A . B: A 64 x 16 bf16 in registers (the accumulator's
+// fragment layout), B 16 x 128 in shared memory, MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x on the SFU; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// Accumulator fragment of wgmma m64nN (f32): in warp w of the warpgroup,
+// register i of lane l holds row 16 w + l / 4 + 8 ((i / 2) % 2), column
+// 8 (i / 4) + 2 (l % 4) + i % 2.  Below, r = (i / 2) % 2 picks the row.
+
+// S = Q . K^T for the warpgroup's 64 rows and a tile of 128 keys: D / 16
+// k-steps; past 64 columns the next atom.
+template <int DMAX>
+__device__ __forceinline__ void issue_qk(float (&sc)[kBlockN / 2], uint32_t q_addr,
+                                         uint32_t k_addr) {
+  const uint64_t dq = desc_sw128(q_addr, 16, 1024), dk = desc_sw128(k_addr, 16, 1024);
+#pragma unroll
+  for (int kk = 0; kk < DMAX / 16; ++kk) {
+    const uint32_t off = ((kk / 4) * kAtomBytes + (kk % 4) * 32) >> 4;  // 16-byte units
+    wgmma_ss_m64n128(sc, dq + off, dk + off, kk > 0);
+  }
+}
+
+// O += P . V: V is 128 keys x D with D contiguous (MN-major); k-step j starts
+// 16 rows (2048 bytes) further, the second 64-column atom kAtomBytes further.
+template <int DMAX>
+__device__ __forceinline__ void issue_pv(float (&acc)[DMAX / 2],
+                                         const uint32_t (&p)[kBlockN / 16][4], uint32_t v_addr) {
+  const uint64_t dv = desc_sw128(v_addr, kAtomBytes, 1024);
+#pragma unroll
+  for (int j = 0; j < kBlockN / 16; ++j) {
+    if constexpr (DMAX == 64)
+      wgmma_rs_m64n64(acc, p[j], dv + j * 16 * 128 / 16);
+    else
+      wgmma_rs_m64n128(acc, p[j], dv + j * 16 * 128 / 16);
+  }
+}
+
+// The online softmax of one score tile, in place: sc becomes P (f32, not
+// normalised) in the log2 domain, exp2(s * scale_log2 - m); m and this
+// thread's share of l move on, and corr is what the accumulator's rows must
+// be scaled by.  kMasked (a tile that crosses the diagonal or S) first sets
+// the scores of keys >= end[r] to -inf, end[r] counted from this thread's
+// first key; the other tiles carry no masking code at all.  A row with no
+// valid key yet subtracts 0 instead of -inf, so it gives 0 and not NaN.
+template <bool kMasked>
+__device__ __forceinline__ void softmax_tile(float (&sc)[kBlockN / 2], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2],
+                                             const int (&end)[2], float scale_log2) {
+  float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+  for (int i = 0; i < kBlockN / 2; ++i) {
+    const int r = (i / 2) % 2;
+    if (kMasked && 8 * (i / 4) + i % 2 >= end[r]) sc[i] = -INFINITY;
+    mx[r][(i / 4) % 2] = fmaxf(mx[r][(i / 4) % 2], sc[i]);
+  }
+  float sub[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float mn = fmaxf(m[r], quad_max(fmaxf(mx[r][0], mx[r][1])) * scale_log2);
+    sub[r] = mn == -INFINITY ? 0.f : mn;
+    corr[r] = ex2(m[r] - sub[r]);
+    m[r] = mn;
+  }
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int i = 0; i < kBlockN / 2; ++i) {
+    const int r = (i / 2) % 2;
+    sc[i] = ex2(fmaf(sc[i], scale_log2, -sub[r]));
+    sum[r][(i / 4) % 2] += sc[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + sum[r][0] + sum[r][1];
+}
+
+// The online softmax of a tile of keys k0 ..: masked only where the tile
+// crosses S or, under `causal`, the first row of the warpgroup.
+__device__ __forceinline__ void softmax_at(float (&sc)[kBlockN / 2], float (&m)[2], float (&l)[2],
+                                           float (&corr)[2], int k0, int wg_row, int row0, int S,
+                                           int causal, float scale_log2, int lane) {
+  if (k0 + kBlockN > S || (causal && k0 + kBlockN - 1 > wg_row)) {
+    const int key0 = k0 + 2 * (lane % 4);  // this thread's first key in the tile
+    const int end[2] = {(causal ? min(S, row0 + 1) : S) - key0,
+                        (causal ? min(S, row0 + 9) : S) - key0};
+    softmax_tile<true>(sc, m, l, corr, end, scale_log2);
+  } else {
+    const int none[2] = {kBlockN, kBlockN};
+    softmax_tile<false>(sc, m, l, corr, none, scale_log2);
+  }
+}
+
+// P (f32, the score accumulator's layout) as wgmma's A fragments in bf16:
+// k-step j covers keys 16 j .. 16 j + 15.
+__device__ __forceinline__ void pack_p(const float (&sc)[kBlockN / 2],
+                                       uint32_t (&p)[kBlockN / 16][4]) {
+#pragma unroll
+  for (int j = 0; j < kBlockN / 16; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) p[j][r] = pack_bf16(sc[8 * j + 2 * r], sc[8 * j + 2 * r + 1]);
+}
+
+// One work item: 128 query rows of one (batch, q head).  Items are numbered
+// heaviest first under `causal` (the last q tile has the most keys), q tiles
+// outermost.  Block c of G takes item c of each round of G items, walking the
+// rounds back and forth (c, then G - 1 - c, ...), so the heavy and light
+// items even out across the persistent blocks.
+struct Item {
+  int q0, h, b, n_tiles;
+};
+
+__device__ __forceinline__ int item_index(int round) {
+  return round * gridDim.x + (round % 2 ? gridDim.x - 1 - blockIdx.x : blockIdx.x);
+}
+
+__device__ __forceinline__ Item item(int w, int H, int B, int S, int causal) {
+  const int n_q = (S + kBlockM - 1) / kBlockM;
+  const int qt = w / (H * B), bh = w % (H * B);
+  Item it;
+  it.q0 = (causal ? n_q - 1 - qt : qt) * kBlockM;
+  it.h = bh % H;
+  it.b = bh / H;
+  it.n_tiles = ((causal ? min(it.q0 + kBlockM, S) : S) + kBlockN - 1) / kBlockN;
+  return it;
+}
+
+template <int DMAX>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int H,
+                int B, int group, int S, int D, int causal, float scale_log2, Strides so) {
+  using L = Smem<DMAX>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar_q = base + L::kBar;
+  const uint32_t bar_q_empty = bar_q + 8;
+  const uint32_t bar_k = bar_q + 16;                // + 8 * stage
+  const uint32_t bar_v = bar_k + 8 * kStages;
+  const uint32_t bar_empty = bar_v + 8 * kStages;
+  const int n_items = H * B * ((S + kBlockM - 1) / kBlockM);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    mbar_init(bar_q_empty, kConsumers * 4);  // one arrival per consumer warp
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_k + 8 * s, 1);
+      mbar_init(bar_v + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, kConsumers * 4);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (wg == kConsumers) {
+    // producer: one thread keeps Q and the K/V ring full, running ahead into
+    // the block's next item while the consumers finish the current one
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (threadIdx.x == kConsumers * 128) {
+      Ring ring;  // where the next K/V tile goes
+      for (int n = 0, w; (w = item_index(n)) < n_items; ++n) {
+        const Item it = item(w, H, B, S, causal);
+        const int kvh = it.h / group;
+        mbar_wait(bar_q_empty, (n & 1) ^ 1);
+        mbar_expect_tx(bar_q, L::kTile);
+        for (int a = 0; a < L::kAtoms; ++a)
+          tma_load(base + L::kQ + a * kAtomBytes, &tm_q, bar_q, a * kAtomCols, it.q0, it.h, it.b);
+        if (item_index(n + 1) < n_items) {  // the next item's Q into L2, ahead of its load
+          const Item next = item(item_index(n + 1), H, B, S, causal);
+          for (int a = 0; a < L::kAtoms; ++a)
+            tma_prefetch_l2(&tm_q, a * kAtomCols, next.q0, next.h, next.b);
+        }
+        for (int t = 0; t < it.n_tiles; ++t, ring.advance()) {
+          const int s = ring.stage;
+          mbar_wait(bar_empty + 8 * s, ring.phase ^ 1);
+          mbar_expect_tx(bar_k + 8 * s, L::kTile);
+          for (int a = 0; a < L::kAtoms; ++a)
+            tma_load(base + L::kK + s * L::kTile + a * kAtomBytes, &tm_k, bar_k + 8 * s,
+                     a * kAtomCols, t * kBlockN, kvh, it.b);
+          mbar_expect_tx(bar_v + 8 * s, L::kTile);
+          for (int a = 0; a < L::kAtoms; ++a)
+            tma_load(base + L::kV + s * L::kTile + a * kAtomBytes, &tm_v, bar_v + 8 * s,
+                     a * kAtomCols, t * kBlockN, kvh, it.b);
+        }
+      }
+    }
+  } else {
+    // consumers: warpgroup wg owns query rows q0 + 64 wg .. q0 + 64 wg + 63 of
+    // each item.  Iteration t issues S_t = Q K_t^T and then
+    // O += P_{t-1} V_{t-1}, waits for S_t only and runs its softmax while the
+    // tensor cores do P.V; then waits for P.V, frees that stage and rescales
+    // O.
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+    const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
+    const uint32_t q_addr = base + L::kQ + 64 * wg * 128;
+    const uint32_t k_ring = base + L::kK, v_ring = base + L::kV;
+
+    Ring ring;  // the next K/V tile to read
+    for (int n = 0, w; (w = item_index(n)) < n_items; ++n) {
+      const Item it = item(w, H, B, S, causal);
+      const int wg_row = it.q0 + 64 * wg;
+      const int row0 = wg_row + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
+
+      float acc[DMAX / 2];
+#pragma unroll
+      for (int i = 0; i < DMAX / 2; ++i) acc[i] = 0.f;
+      float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+      float sc[kBlockN / 2];
+      uint32_t p[kBlockN / 16][4];  // bf16 P of the tile whose P.V is pending
+
+      mbar_wait(bar_q, n & 1);
+      mbar_wait(bar_k + 8 * ring.stage, ring.phase);
+      wgmma_fence();
+      issue_qk<DMAX>(sc, q_addr, k_ring + ring.stage * L::kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sc);
+      softmax_at(sc, m, l, corr, 0, wg_row, row0, S, causal, scale_log2, lane);
+      pack_p(sc, p);  // O is still 0: nothing to rescale
+      Ring prev = ring;  // the tile whose P.V is pending
+      ring.advance();
+
+      for (int t = 1; t < it.n_tiles; ++t, prev = ring, ring.advance()) {
+        const int s = ring.stage, sp = prev.stage;
+        const int k0 = t * kBlockN;
+        mbar_wait(bar_k + 8 * s, ring.phase);
+        mbar_wait(bar_v + 8 * sp, prev.phase);
+        wgmma_fence();
+        issue_qk<DMAX>(sc, q_addr, k_ring + s * L::kTile);
+        wgmma_commit();
+        issue_pv<DMAX>(acc, p, v_ring + sp * L::kTile);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(sc);
+        softmax_at(sc, m, l, corr, k0, wg_row, row0, S, causal, scale_log2, lane);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_regs(p);
+        if (lane == 0) mbar_arrive(bar_empty + 8 * sp);
+#pragma unroll
+        for (int i = 0; i < DMAX / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+        pack_p(sc, p);
+      }
+      // every product with Q is done: the producer may load the next item's
+      if (lane == 0) mbar_arrive(bar_q_empty);
+      const int sl = prev.stage;
+      mbar_wait(bar_v + 8 * sl, prev.phase);
+      wgmma_fence();
+      issue_pv<DMAX>(acc, p, v_ring + sl * L::kTile);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      if (lane == 0) mbar_arrive(bar_empty + 8 * sl);
+
+      const float inv0 = 1.f / fmaxf(quad_sum(l[0]), 1e-20f);
+      const float inv1 = 1.f / fmaxf(quad_sum(l[1]), 1e-20f);
+      __nv_bfloat16* ob = o + it.b * so.b + it.h * so.h;
+#pragma unroll
+      for (int j = 0; j < DMAX / 8; ++j) {
+        const int col = 8 * j + 2 * (lane % 4);
+        if (col >= D) continue;
+        if (row0 < S)
+          *reinterpret_cast<uint32_t*>(ob + row0 * so.s + col) =
+              pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        if (row0 + 8 < S)
+          *reinterpret_cast<uint32_t*>(ob + (row0 + 8) * so.s + col) =
+              pack_bf16(acc[4 * j + 2] * inv1, acc[4 * j + 3] * inv1);
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up at run time so that libcuda need not be linked.
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D map (D, S, heads, B) over bf16 at `ptr` with the given element
+// strides; boxes of 64 columns x 128 rows, 128-byte swizzle, zero fill.
+bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B, Strides st) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)S, (cuuint64_t)heads, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)st.s * 2, (cuuint64_t)st.h * 2, (cuuint64_t)st.b * 2};
+  const cuuint32_t box[4] = {kAtomCols, kBlockN, 1, 1};
+  const cuuint32_t ones[4] = {1, 1, 1, 1};
+  return encode_fn()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                     strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                     CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int DMAX>
+cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o,
+                   int B, int H, int KH, int S, int D, int causal, float scale_log2, Strides so,
+                   cudaStream_t stream) {
+  constexpr int smem = Smem<DMAX>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<DMAX>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) != cudaSuccess)
+    return err;
+  const long long items = (long long)H * B * ((S + kBlockM - 1) / kBlockM);
+  const int grid = (int)(items < sms ? items : sms);  // persistent: one block per SM
+  flash_fwd_wgmma<DMAX><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, B, H / KH, S, D, causal, scale_log2, so);
+  return cudaGetLastError();
+}
+
+bool fits(const void* ptr, Strides st) {
+  return (reinterpret_cast<uintptr_t>(ptr) & 15) == 0 && st.b > 0 && st.h > 0 && st.s > 0 &&
+         st.b % 8 == 0 && st.h % 8 == 0 && st.s % 8 == 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The signature of repro_flash_attention_fwd (flash_attention.cu): q, o
+// (B, H, S, D); k, v (B, KH, S, D), addressed through the given strides
+// (elements; D contiguous).  dtype must be 1 (bfloat16), D a multiple of 8 up
+// to 128, q/k/v 16-byte aligned with b/h/s strides positive multiples of 8.
+// scale_log2 is log2(e) / sqrt(D).  Returns cudaGetLastError() after the
+// launch, or the error that kept it from launching.
+int repro_flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
+                                    int dtype, int B, int H, int KH, int S, int D, int causal,
+                                    float scale_log2, long long sqb, long long sqh, long long sqs,
+                                    long long skb, long long skh, long long sks, long long svb,
+                                    long long svh, long long svs, long long sob, long long soh,
+                                    long long sos, void* stream) {
+  const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs}, so{sob, soh, sos};
+  if (dtype != 1 || B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || D <= 0 || D > 128 ||
+      D % 8 != 0 || (long long)H * B * ((S + kBlockM - 1) / kBlockM) > INT_MAX || !fits(q, sq) ||
+      !fits(k, sk) || !fits(v, sv))
+    return (int)cudaErrorInvalidValue;
+  if (encode_fn() == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, D, S, H, B, sq) || !make_map(&mk, k, D, S, KH, B, sk) ||
+      !make_map(&mv, v, D, S, KH, B, sv))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(D <= 64 ? launch<64>(mq, mk, mv, o, B, H, KH, S, D, causal, scale_log2, so, st)
+                       : launch<128>(mq, mk, mv, o, B, H, KH, S, D, causal, scale_log2, so, st));
+}
+
+const char* repro_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -1,13 +1,25 @@
-"""Flash attention forward: the wrapper of the CUDA C++ kernel in
-``repro_torch/csrc/flash_attention.cu``, bound with ctypes.
+"""Flash attention forward: the wrappers of two CUDA C++ kernels, bound with
+ctypes.
 
 Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
-(``_flash_kernel`` / ``flash_attention``).  The source file carries the
-kernel's note: what bounds it on the H100 and what its design does about it.
-Unlike the TPU wrapper, nothing is padded: the kernel masks the ragged S edge
-and the D columns itself, and the scale uses the real D.  ``FlashAttentionFn``
-gives it a gradient through a plain PyTorch backward (the TPU kernel has no
-backward kernel either).
+(``_flash_kernel`` / ``flash_attention``).  ``_variant`` chooses the kernel
+from dtype, head dim, base pointers and strides alone, before the launch:
+
+* ``"wgmma"``, ``repro_torch/csrc/flash_attention_wgmma.cu``: bf16 with
+  D % 8 == 0, 16-byte-aligned base pointers and b/h/s strides that are
+  positive multiples of 8 elements (what its TMA loads need); both products
+  on the tensor cores;
+* ``"scalar"``, ``repro_torch/csrc/flash_attention.cu``: everything else, on
+  the f32 CUDA cores.  f32 stays there because it must meet atol 2e-3, which
+  TF32 tensor cores do not; bf16 with an odd D or unaligned strides goes
+  there too.
+
+A build or launch error of either kernel raises; nothing falls back to the
+other.  Each source carries its kernel's note: what bounds it on the H100 and
+what its design does about it.  Unlike the TPU wrapper, nothing is padded:
+the kernels mask the ragged S edge and the D columns themselves, and the
+scale uses the real D.  ``FlashAttentionFn`` gives it a gradient through a
+plain PyTorch backward (the TPU kernel has no backward kernel either).
 """
 
 from __future__ import annotations
@@ -21,14 +33,18 @@ import torch
 from . import _build, ref
 
 launches = 0   # kernel launches since the last reset (see ops.launch_counts)
+launches_by_variant = {"wgmma": 0, "scalar": 0}   # the same launches, per kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_LIBS = {"scalar": ("flash_attention", "repro_flash_attention_fwd"),
+         "wgmma": ("flash_attention_wgmma", "repro_flash_attention_wgmma_fwd")}
 
 
 @functools.cache
-def _fn():
-    lib = _build.load("flash_attention")
-    fn = lib.repro_flash_attention_fwd
+def _fn(variant: str):
+    lib_name, symbol = _LIBS[variant]
+    lib = _build.load(lib_name)
+    fn = getattr(lib, symbol)
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -37,15 +53,19 @@ def _fn():
     return fn, lib.repro_cuda_error_string
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q: (B, H, S, D); k/v: (B, KH, S, D), CUDA, f32 or bf16 -> (B, H, S, D).
+def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``"wgmma"`` where the tensor-core kernel takes q, k, v, else
+    ``"scalar"``: from dtype, head dim, base pointers and strides only."""
+    D = q.shape[-1]
+    if q.dtype != torch.bfloat16 or D % 8 or D > 128:
+        return "scalar"
+    for t in (q, k, v):
+        if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in t.stride()[:3]):
+            return "scalar"
+    return "wgmma"
 
-    Any strides with a contiguous last dimension; the output has q's memory
-    layout (``empty_like``), so a (B, S, H, D) tensor passed as a transposed
-    view comes back the same way.
-    """
-    global launches
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(f"flash_attention: bad shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
@@ -63,17 +83,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention: q, k, v must be on one CUDA device")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: the last dimension must be contiguous")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True) -> torch.Tensor:
+    """q: (B, H, S, D); k/v: (B, KH, S, D), CUDA, f32 or bf16 -> (B, H, S, D).
+
+    Any strides with a contiguous last dimension; the output has q's memory
+    layout (``empty_like``), so a (B, S, H, D) tensor passed as a transposed
+    view comes back the same way.  The kernel is ``_variant``'s choice.
+    """
+    _check(q, k, v)
+    return _launch(_variant(q, k, v), q, k, v, causal)
+
+
+def flash_attention_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool = True) -> torch.Tensor:
+    """``flash_attention`` through the CUDA-core kernel whatever the inputs
+    (it takes all of them), to time it beside the tensor-core kernel."""
+    _check(q, k, v)
+    return _launch("scalar", q, k, v, causal)
+
+
+def _launch(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    global launches
+    B, H, S, D = q.shape
     o = torch.empty_like(q)
-    fn, err_str = _fn()
+    fn, err_str = _fn(variant)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             _DTYPES[q.dtype], B, H, KH, S, D, int(causal),
+             _DTYPES[q.dtype], B, H, k.shape[1], S, D, int(causal),
              math.log2(math.e) / math.sqrt(D),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
-        raise RuntimeError(f"flash_attention kernel launch failed: "
+        raise RuntimeError(f"flash_attention ({variant}) kernel launch failed: "
                            f"{err_str(err).decode()} (cudaError {err})")
     launches += 1
+    launches_by_variant[variant] += 1
     return o
 
 

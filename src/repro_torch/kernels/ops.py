@@ -69,10 +69,12 @@ def dgc_mask(g: torch.Tensor, threshold) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def launch_counts() -> Dict[str, int]:
-    """Kernel launches per kernel since the last ``reset_launch_counts``."""
+    """Kernel launches per kernel since the last ``reset_launch_counts``
+    (flash attention's split by kernel: ``flash_attention.launches_by_variant``)."""
     return {name: mod.launches for name, mod in _KERNELS.items()}
 
 
 def reset_launch_counts() -> None:
     for mod in _KERNELS.values():
         mod.launches = 0
+    _fa.launches_by_variant.update(dict.fromkeys(_fa.launches_by_variant, 0))

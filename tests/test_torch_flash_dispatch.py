@@ -1,0 +1,120 @@
+"""Which flash-attention kernel takes which inputs, and how launches are
+counted per kernel.
+
+``_variant`` is a pure function of dtype, head dim, base pointers and
+strides, so it runs here on CPU tensors.  The launch path is driven with the
+compiled libraries replaced by fakes (there is no card or nvcc here), which
+shows the wrapper counts each launch once, under the kernel it chose, and
+raises on a launch error without trying the other kernel.
+"""
+
+from types import SimpleNamespace
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+
+bf16, f32 = torch.bfloat16, torch.float32
+
+
+def _bhsd(B, H, KH, S, D, dtype=bf16):
+    return (torch.zeros(B, H, S, D, dtype=dtype),
+            torch.zeros(B, KH, S, D, dtype=dtype),
+            torch.zeros(B, KH, S, D, dtype=dtype))
+
+
+def _bshd_views(B, H, KH, S, D, dtype=bf16):
+    """(B, S, H, D) tensors viewed as (B, H, S, D), as the model passes them."""
+    return tuple(torch.zeros(B, S, h, D, dtype=dtype).transpose(1, 2)
+                 for h in (H, KH, KH))
+
+
+def _padded_rows(B, H, KH, S, D, pad, dtype=bf16):
+    """Rows of D + pad elements with the last ``pad`` cut off: S-stride D + pad."""
+    return tuple(torch.zeros(B, h, S, D + pad, dtype=dtype)[..., :D]
+                 for h in (H, KH, KH))
+
+
+@pytest.mark.parametrize("make,want", [
+    (lambda: _bhsd(1, 2, 1, 128, 64), "wgmma"),
+    (lambda: _bhsd(2, 4, 2, 256, 128), "wgmma"),
+    (lambda: _bhsd(1, 8, 2, 96, 80), "wgmma"),
+    (lambda: _bshd_views(4, 32, 4, 512, 64), "wgmma"),
+    (lambda: _bshd_views(1, 8, 1, 300, 80), "wgmma"),
+    (lambda: _bhsd(1, 2, 1, 128, 64, f32), "scalar"),
+    (lambda: _bshd_views(2, 32, 4, 64, 64, f32), "scalar"),
+    (lambda: _bhsd(1, 2, 1, 64, 12), "scalar"),
+    (lambda: _padded_rows(1, 2, 1, 64, 64, 4), "scalar"),
+    (lambda: _padded_rows(1, 2, 1, 64, 64, 8), "wgmma"),
+], ids=["bf16-d64", "bf16-d128", "bf16-d80", "bf16-bshd-view",
+        "bf16-bshd-view-ragged-d80", "f32", "f32-bshd-view", "bf16-d12",
+        "bf16-s-stride-68", "bf16-s-stride-72"])
+def test_variant_from_dtype_shape_and_strides(make, want):
+    q, k, v = make()
+    assert flash_kernel._variant(q, k, v) == want
+
+
+def test_variant_needs_16_byte_aligned_pointers():
+    flat = torch.zeros(2 * 64 * 64 + 4, dtype=bf16)
+    q = flat[4:].view(1, 2, 64, 64)          # 8 bytes past an aligned base
+    k = v = flat[:64 * 64].view(1, 1, 64, 64)
+    assert q.data_ptr() % 16 == 8
+    assert flash_kernel._variant(q, k, v) == "scalar"
+    assert flash_kernel._variant(k, k, v) == "wgmma"
+
+
+def _fake_launches(monkeypatch, fail=()):
+    """Replace the compiled kernels with fakes that record which one ran (and
+    return an error code for the variants in ``fail``); pretend every tensor
+    lies on the card."""
+    ran = []
+
+    def fake(variant):
+        def fn(*args):
+            ran.append(variant)
+            return 700 if variant in fail else 0
+        return fn, lambda err: b"an illegal memory access was encountered"
+
+    monkeypatch.setattr(flash_kernel, "_fn", fake)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    return ran
+
+
+def test_launches_by_variant_sum_to_launches_and_reset(monkeypatch):
+    ran = _fake_launches(monkeypatch)
+    ops.reset_launch_counts()
+    flash_kernel.flash_attention(*_bshd_views(2, 4, 2, 16, 64))
+    flash_kernel.flash_attention(*_bhsd(1, 2, 1, 16, 64, f32), causal=False)
+    flash_kernel.flash_attention(*_bhsd(1, 2, 1, 16, 12))
+    flash_kernel.flash_attention_scalar(*_bhsd(1, 2, 1, 16, 64))
+    assert ran == ["wgmma", "scalar", "scalar", "scalar"]
+    assert flash_kernel.launches_by_variant == {"wgmma": 1, "scalar": 3}
+    assert sum(flash_kernel.launches_by_variant.values()) == flash_kernel.launches == 4
+    assert ops.launch_counts() == {"flash_attention": 4, "rmsnorm": 0,
+                                   "fused_adam": 0, "dgc_mask": 0}
+    ops.reset_launch_counts()
+    assert flash_kernel.launches_by_variant == {"wgmma": 0, "scalar": 0}
+    assert flash_kernel.launches == 0
+
+
+def test_launch_error_raises_without_falling_back(monkeypatch):
+    ran = _fake_launches(monkeypatch, fail=("wgmma",))
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match=r"\(wgmma\).*illegal memory access"):
+        flash_kernel.flash_attention(*_bhsd(1, 2, 1, 16, 64))
+    assert ran == ["wgmma"]
+    assert flash_kernel.launches == 0
+    assert flash_kernel.launches_by_variant == {"wgmma": 0, "scalar": 0}
+
+
+def test_output_keeps_the_bshd_layout(monkeypatch):
+    _fake_launches(monkeypatch)
+    q, k, v = _bshd_views(2, 4, 2, 16, 64)
+    o = flash_kernel.flash_attention(q, k, v)
+    assert o.shape == q.shape and o.stride() == q.stride()
+    ops.reset_launch_counts()
