@@ -9,8 +9,12 @@ Ported so far: the dense-decoder serve path (``models``, ``serve.engine``,
 ``data``, ``runtime``, ``train.loop``, ``launch.train``), with all four
 kernels: flash attention (CUDA C++) and RMSNorm (Triton), each with a plain
 PyTorch backward, the fused AdamW update (CUDA C++) and the DGC threshold
-pass (CUDA C++).  Entry points run on ``cuda`` unless the caller passes
-``device="cpu"``; on the CPU each kernel wrapper runs its plain version.
+pass (CUDA C++); and Daydream itself: the simulator core and what-if
+registry (``core``, ``obs``, ``parallel.plan``, carried over from ``repro``)
+with a trace route of its own (``core.trace_measured``: torch.profiler's
+CUDA kernel and runtime records -> dependency graph).  Entry points run on
+``cuda`` unless the caller passes ``device="cpu"``; on the CPU each kernel
+wrapper runs its plain version.
 """
 
 import torch

@@ -1,0 +1,344 @@
+"""torch.profiler (Kineto/CUPTI) events -> Daydream dependency graph.
+
+This is the port's replacement for ``repro.core.hlo``: where the reference
+reads a compiled XLA program, the port reads what the card really ran, as the
+paper does on GPUs (§4.2-4.3).  The input is the ``traceEvents`` list of a
+torch.profiler Chrome trace (``profile.export_chrome_trace``) taken with CPU
+and CUDA activities and ``record_shapes=True``; only complete (``"ph": "X"``)
+events are read, with times in microseconds.
+
+Tasks (§4.2.1):
+
+* every CUDA kernel, memcpy and memset record (``kernel``, ``gpu_memcpy``,
+  ``gpu_memset``) is a ``device`` task with its measured duration, in
+  timestamp order (all streams share the one ``device`` lane);
+* every CUDA runtime or driver record (``cuda_runtime``, ``cuda_driver``:
+  ``cudaLaunchKernel``, ``cuLaunchKernelEx``, ``cudaMemcpyAsync``,
+  ``cudaStreamSynchronize``, ...) is a ``host`` task.  Records of all CPU
+  threads share the one ``host`` lane in timestamp order: the autograd
+  engine's thread runs the backward while the calling thread waits inside
+  ``backward()``/``autograd.grad``, so the two never issue work at once.  A
+  record nested in another record of its thread is part of the outer one.
+  The untraced host time from a record's end to the start of the next record
+  in the lane (Python, dispatch, allocator) is that record's ``gap`` (§4.2.1)
+  -- except after a record that launched device work: Daydream's engine
+  releases all of a task's children at its end plus its gap, so there that
+  time is a ``host`` task of its own (``untraced host``, same layer and
+  phase) after the launch, and the kernel is ready when its launch ends.
+
+Edges (§4.2.2): host order and stream order (the lanes), launch -> kernel by
+CUPTI correlation id, and device -> host at every synchronising call (a
+record whose name contains ``Synchronize``): the call ends after the last
+device task launched before it, and its duration becomes what it took after
+that task had finished (the wait itself is the edge).
+
+Layer and phase (§4.3), from the ``record_function`` scopes around the
+*launching* operator (the innermost ``cpu_op`` that encloses the runtime
+record):
+
+* ``layer`` is the innermost scope's name;
+* ``phase`` is ``update`` under an ``update`` scope, ``bwd`` under an
+  ``autograd::engine::evaluate_function`` ancestor, ``fwd`` otherwise;
+* a backward op does not run inside its forward's scope, so it takes the
+  layer of the forward operator with the same autograd ``Sequence number``
+  as its outermost ``evaluate_function`` node (custom ``autograd.Function``s
+  such as ``FlashAttentionFn`` carry one too).  The outermost, because a
+  node's backward may run autograd again (``FlashAttentionFnBackward``
+  differentiates a recompute; checkpointed chunks recompute their forward):
+  those inner nodes were made on the backward's own thread, whose sequence
+  numbers are a counter of their own.
+
+``flops`` and ``bytes_accessed`` come from the launching operator, split
+evenly over the device records it launched: FLOPs by the profiler's formula
+for the matrix products (a ``flops`` argument where the trace has one),
+bytes as its input tensors (``Input Dims``/``Input type``) plus an estimate
+of its output: an in-place op (``add_``) writes its first input, a matrix
+product writes its ``(M, N)`` result, any other op one tensor as large as its
+largest input.
+
+The route follows the device the step ran on, not the capture's content. On
+``cuda`` a capture with no device record is an error (CUPTI traced nothing).
+On ``cpu`` the graph is one of the operators themselves: every innermost
+``cpu_op`` is a ``device`` task (the CPU is the device), with the untraced
+time to the next one as its gap.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+from .graph import DependencyGraph
+from .task import DEVICE_STREAM, HOST_THREAD, Task, TaskKind
+
+DEVICE_CATS = {"kernel": TaskKind.COMPUTE, "gpu_memcpy": TaskKind.MEMORY,
+               "gpu_memset": TaskKind.MEMORY}
+HOST_CATS = ("cuda_runtime", "cuda_driver")
+OP_CATS = ("cpu_op", "user_annotation")
+ENGINE = "autograd::engine::evaluate_function"
+UPDATE_SCOPE = "update"
+
+_DTYPE_BYTES = {"float": 4, "c10::BFloat16": 2, "c10::Half": 2, "double": 8,
+                "long int": 8, "int": 4, "short int": 2, "signed char": 1,
+                "unsigned char": 1, "bool": 1, "c10::complex<float>": 8,
+                "c10::complex<double>": 16, "c10::Float8_e4m3fn": 1,
+                "c10::Float8_e5m2": 1}
+_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+
+
+# ------------------------------------------------------------------ events
+class _Event:
+    """One complete event and its place in its thread's nesting."""
+
+    __slots__ = ("e", "name", "cat", "tid", "ts", "end", "parent", "is_leaf")
+
+    def __init__(self, e: Dict[str, Any]) -> None:
+        self.e = e
+        self.name = str(e.get("name", "?"))
+        self.cat = e.get("cat")
+        self.tid = (e.get("pid"), e.get("tid"))
+        self.ts = float(e["ts"])
+        self.end = self.ts + float(e.get("dur", 0.0))
+        self.parent: Optional["_Event"] = None
+        self.is_leaf = True
+
+    @property
+    def args(self) -> Dict[str, Any]:
+        return self.e.get("args") or {}
+
+    def ancestors(self):
+        p = self.parent
+        while p is not None:
+            yield p
+            p = p.parent
+
+
+def _nest(events: Sequence[_Event]) -> None:
+    """Set each host-side event's parent: the innermost event of its thread
+    that is still open when it starts."""
+    by_tid: Dict[Any, List[_Event]] = {}
+    for ev in events:
+        by_tid.setdefault(ev.tid, []).append(ev)
+    for evs in by_tid.values():
+        evs.sort(key=lambda ev: (ev.ts, -ev.end))
+        stack: List[_Event] = []
+        for ev in evs:
+            while stack and stack[-1].end <= ev.ts:
+                stack.pop()
+            if stack:
+                ev.parent = stack[-1]
+                if ev.cat == "cpu_op":
+                    stack[-1].is_leaf = False
+            stack.append(ev)
+
+
+def _tensor_bytes(args: Dict[str, Any]) -> List[float]:
+    out = []
+    for dims, typ in zip(args.get("Input Dims") or [], args.get("Input type") or []):
+        size = _DTYPE_BYTES.get(typ)
+        if size is None or not isinstance(dims, list):
+            continue
+        n = 1
+        for d in dims:
+            if not isinstance(d, int):
+                break
+            n *= d
+        else:
+            out.append(float(n * size))
+    return out
+
+
+def _matmul_mnk(name: str, dims: List[Any]) -> Optional[Tuple[int, int, int, int]]:
+    """(batch, M, N, K) of a matrix product from its input dims."""
+    try:
+        if name == "aten::mm":
+            (m, k), (_, n) = dims[0], dims[1]
+            return 1, m, n, k
+        if name == "aten::addmm":
+            (m, k), (_, n) = dims[1], dims[2]
+            return 1, m, n, k
+        if name == "aten::bmm":
+            (b, m, k), (_, _, n) = dims[0], dims[1]
+            return b, m, n, k
+        if name == "aten::baddbmm":
+            (b, m, k), (_, _, n) = dims[1], dims[2]
+            return b, m, n, k
+    except (TypeError, ValueError, IndexError):
+        return None
+    return None
+
+
+def op_cost(op: Optional[_Event]) -> Tuple[float, float]:
+    """(FLOPs, bytes) of one operator from its recorded input shapes."""
+    if op is None:
+        return 0.0, 0.0
+    args = op.args
+    ins = _tensor_bytes(args)
+    dims = args.get("Input Dims") or []
+    flops = float(args.get("flops", 0.0) or 0.0)
+    mnk = _matmul_mnk(op.name, dims) if op.name in _MATMULS else None
+    if mnk is not None:
+        b, m, n, k = mnk
+        flops = flops or 2.0 * b * m * n * k
+        typ = (args.get("Input type") or ["float"])[-1]
+        out = float(b * m * n * _DTYPE_BYTES.get(typ, 4))
+    elif op.name.endswith("_") and not op.name.endswith("__"):
+        out = ins[0] if ins else 0.0
+    else:
+        out = max(ins, default=0.0)
+    return flops, sum(ins) + out
+
+
+class _Context:
+    """Layer and phase of a host-side event, from its ancestors."""
+
+    def __init__(self, events: Sequence[_Event]) -> None:
+        self.fwd_layer: Dict[int, str] = {}
+        for ev in events:
+            seq = ev.args.get("Sequence number")
+            if ev.cat != "cpu_op" or seq is None or seq < 0:
+                continue
+            layer, phase, _ = self.of(ev)
+            if phase == "fwd" and layer is not None:
+                self.fwd_layer.setdefault(seq, layer)
+
+    def of(self, ev: _Event) -> Tuple[Optional[str], str, Optional[_Event]]:
+        """(layer, phase, launching operator) of ``ev`` (an operator counts
+        as its own launching operator)."""
+        scope = op = engine = None
+        update = False
+        chain = [ev] if ev.cat in OP_CATS else []
+        for a in chain + list(ev.ancestors()):
+            if a.cat == "user_annotation":
+                scope = scope or a.name
+                update = update or a.name == UPDATE_SCOPE
+            elif a.cat == "cpu_op":
+                op = op or a
+                if a.name.startswith(ENGINE):
+                    engine = a          # the outermost: a node of the step's graph
+        if update:
+            phase = "update"
+        elif engine is not None:
+            phase = "bwd"
+        else:
+            phase = "fwd"
+        layer = scope
+        if phase == "bwd":
+            seq = engine.args.get("Sequence number")
+            layer = self.fwd_layer.get(seq, layer)
+        return layer, phase, op
+
+
+# ------------------------------------------------------------------- graph
+def graph_from_events(events: Sequence[Dict[str, Any]],
+                      device: str = "cuda") -> DependencyGraph:
+    """Build the dependency graph of a step that ran on ``device`` (``cuda``
+    or ``cpu``) from its torch.profiler trace events."""
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"device must be 'cuda' or 'cpu', got {device!r}")
+    complete = [_Event(e) for e in events
+                if e.get("ph") == "X" and "ts" in e]
+    host_side = [ev for ev in complete if ev.cat in OP_CATS or ev.cat in HOST_CATS]
+    _nest(host_side)
+    ctx = _Context(host_side)
+    if device == "cpu":
+        return _cpu_graph(host_side, ctx)
+    records = sorted((ev for ev in complete if ev.cat in DEVICE_CATS),
+                     key=lambda ev: ev.ts)
+    if not records:
+        raise ValueError("a CUDA capture with no kernel, memcpy or memset "
+                         "record: CUPTI traced nothing on the card")
+    return _cuda_graph(host_side, records, ctx)
+
+
+def _sec(us: float) -> float:
+    return us * 1e-6
+
+
+def _cuda_graph(host_side: List[_Event], device: List[_Event],
+                ctx: _Context) -> DependencyGraph:
+    g = DependencyGraph()
+    records = sorted((ev for ev in host_side if ev.cat in HOST_CATS),
+                     key=lambda ev: (ev.ts, -ev.end))
+    top: List[_Event] = []
+    owner: Dict[Any, _Event] = {}          # correlation id -> top-level record
+    for ev in records:
+        outer = None
+        for a in ev.ancestors():
+            if a.cat in HOST_CATS:
+                outer = a
+        if outer is None:
+            top.append(ev)
+        owner[ev.args.get("correlation")] = outer or ev
+    info = {id(ev): ctx.of(ev) for ev in top}     # (layer, phase, launching op)
+
+    # each launching op's FLOPs and bytes are split over the records it launched
+    launched_by: Dict[int, List[_Event]] = {}
+    per_op: Dict[int, int] = {}
+    for dv in device:
+        rec = owner.get(dv.args.get("correlation"))
+        if rec is not None:
+            launched_by.setdefault(id(rec), []).append(dv)
+            op = info[id(rec)][2]
+            per_op[id(op)] = per_op.get(id(op), 0) + 1
+
+    host_tasks: Dict[int, Task] = {}
+    for i, ev in enumerate(top):
+        layer, phase, op = info[id(ev)]
+        nxt = top[i + 1].ts if i + 1 < len(top) else ev.end
+        gap = _sec(max(0.0, nxt - ev.end))
+        launches = id(ev) in launched_by
+        sync = "Synchronize" in ev.name
+        t = Task(name=ev.name, kind=TaskKind.SYNC if sync else TaskKind.HOST,
+                 thread=HOST_THREAD, duration=_sec(ev.end - ev.ts),
+                 gap=0.0 if launches else gap, layer=layer, phase=phase,
+                 attrs={"op": op.name if op else None,
+                        "correlation": ev.args.get("correlation")})
+        host_tasks[id(ev)] = g.add_task(t)
+        if launches and gap > 0:
+            g.add_task(Task(name="untraced host", kind=TaskKind.HOST,
+                            thread=HOST_THREAD, duration=gap, layer=layer,
+                            phase=phase, attrs={"op": None, "correlation": None}))
+
+    dev_tasks: Dict[int, Task] = {}
+    for dv in device:
+        rec = owner.get(dv.args.get("correlation"))
+        layer, phase, op = info[id(rec)] if rec is not None else (None, "fwd", None)
+        flops, nbytes = op_cost(op)
+        share = per_op.get(id(op), 1)
+        t = Task(name=dv.name, kind=DEVICE_CATS[dv.cat], thread=DEVICE_STREAM,
+                 duration=_sec(dv.end - dv.ts), layer=layer, phase=phase,
+                 flops=flops / share, bytes_accessed=nbytes / share,
+                 attrs={"op": op.name if op else None,
+                        "stream": dv.args.get("stream"),
+                        "correlation": dv.args.get("correlation")})
+        dev_tasks[id(dv)] = g.add_task(t)
+        if rec is not None:
+            g.add_edge(host_tasks[id(rec)], t)
+
+    # device -> host: a synchronising call waits for every earlier launch
+    last: Optional[_Event] = None
+    for ev in top:
+        if "Synchronize" in ev.name and last is not None:
+            t = host_tasks[id(ev)]
+            g.add_edge(dev_tasks[id(last)], t)
+            t.duration = _sec(max(0.0, ev.end - max(ev.ts, last.end)))
+        for dv in launched_by.get(id(ev), ()):
+            if last is None or dv.ts > last.ts:
+                last = dv
+    return g
+
+
+def _cpu_graph(host_side: List[_Event], ctx: _Context) -> DependencyGraph:
+    g = DependencyGraph()
+    leaves = sorted((ev for ev in host_side if ev.cat == "cpu_op" and ev.is_leaf),
+                    key=lambda ev: (ev.ts, -ev.end))
+    for i, ev in enumerate(leaves):
+        layer, phase, op = ctx.of(ev)
+        flops, nbytes = op_cost(op)
+        nxt = leaves[i + 1].ts if i + 1 < len(leaves) else ev.end
+        g.add_task(Task(name=ev.name, kind=TaskKind.COMPUTE, thread=DEVICE_STREAM,
+                        duration=_sec(ev.end - ev.ts),
+                        gap=_sec(max(0.0, nxt - ev.end)), layer=layer,
+                        phase=phase, flops=flops, bytes_accessed=nbytes,
+                        attrs={"op": ev.name}))
+    return g

@@ -1,0 +1,155 @@
+"""Trace acquisition: a PyTorch step function -> Daydream dependency graph.
+
+Daydream Phase 1 (paper §4.1) as the paper runs it on GPUs: the step runs
+under torch.profiler (Kineto over CUPTI) and :mod:`repro_torch.core.kineto`
+turns the capture into a graph whose durations are the measured ones, so
+unlike the reference's ``trace_measured`` nothing is rescaled.
+
+* :func:`trace_measured` — warm up, profile a few calls, build the graph
+  of the fastest.
+* :func:`measure_wallclock` — the step's time without the profiler: the
+  median over calls of CUDA-event time (host clock on the CPU).
+
+The analytical route of the reference (``trace_compiled``: FLOPs and bytes
+per operator costed by :class:`CostModel`, no hardware needed) and
+``TraceBundle.export_chrome`` (which needs ``traceio``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import tempfile
+import time
+from typing import Any, Callable, Dict, List, Optional
+
+import torch
+
+from repro_torch import resolve_device
+from .costmodel import CostModel
+from .graph import DependencyGraph
+from .kineto import graph_from_events
+from .simulate import SimResult, simulate
+from .task import DEVICE_STREAM, H100_SXM
+
+
+@dataclasses.dataclass
+class TraceBundle:
+    """Everything Daydream knows about one step function.  ``module`` is the
+    capture's raw trace events (the reference keeps the HLO module there)."""
+
+    graph: DependencyGraph
+    module: List[Dict[str, Any]]
+    aggregates: Dict[str, float]
+    cost: CostModel
+    compiled: Any = None
+    measured_step_s: Optional[float] = None
+
+    def simulate(self, schedule=None) -> SimResult:
+        return simulate(self.graph, schedule)
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure_wallclock(fn: Callable, *args, device="cuda", iters: int = 10,
+                      warmup: int = 3, **kwargs) -> float:
+    """Median seconds per call of ``fn(*args, **kwargs)``: on CUDA the time
+    between two events recorded around the call on the current stream
+    (each call ends in a sync before the next starts), on the CPU the host
+    clock."""
+    dev = resolve_device(device)
+    times = []
+    for i in range(warmup + iters):
+        _sync(dev)
+        if dev.type == "cuda":
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            dt = start.elapsed_time(end) * 1e-3
+        else:
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            dt = time.perf_counter() - t0
+        if i >= warmup:
+            times.append(dt)
+    times.sort()
+    return times[len(times) // 2]
+
+
+def profile_events(fn: Callable, *args, device="cuda", **kwargs
+                   ) -> List[Dict[str, Any]]:
+    """The trace events of one call of ``fn`` (ending in a device sync) under
+    torch.profiler with CPU (and on CUDA, CUDA) activities and shapes.
+
+    ``with_flops`` stays off: its counts do not reach the exported trace
+    (:mod:`.kineto` computes the matrix products' FLOPs from the recorded
+    shapes), and the host time it adds to every operator stretches the
+    profiled step where the host paces the device, which the simulation
+    would then reproduce as if it were the step's own."""
+    dev = resolve_device(device)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+        fn(*args, **kwargs)
+        _sync(dev)
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            return json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+
+
+def host_span_s(events: List[Dict[str, Any]]) -> float:
+    """Seconds from the first to the end of the last host-side record
+    (operator or CUDA runtime/driver call) of a capture."""
+    xs = [e for e in events if e.get("ph") == "X" and "ts" in e
+          and e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver")]
+    return (max(e["ts"] + e.get("dur", 0) for e in xs)
+            - min(e["ts"] for e in xs)) * 1e-6
+
+
+def trace_measured(fn: Callable, *args, device="cuda",
+                   cost: Optional[CostModel] = None, warmup: int = 2,
+                   profiles: int = 3, **kwargs) -> TraceBundle:
+    """Profile ``profiles`` calls of ``fn(*args, **kwargs)`` after ``warmup``
+    calls, one capture each, and build the dependency graph of the capture
+    with the shortest host span, with measured durations.  The simulation
+    reproduces the pace of the host it captured, and on a shared host that
+    pace varies from call to call; the fastest capture is the one least
+    slowed by other load.  ``cost`` (for tasks that what-ifs insert)
+    defaults to the H100 SXM's data sheet on CUDA and to the reference's
+    default on the CPU."""
+    dev = resolve_device(device)
+    for _ in range(warmup):
+        fn(*args, **kwargs)
+    _sync(dev)
+    events, spans = None, []
+    for _ in range(max(1, profiles)):
+        got = profile_events(fn, *args, device=dev, **kwargs)
+        spans.append(host_span_s(got))
+        if spans[-1] == min(spans):
+            events = got
+        del got
+    graph = graph_from_events(events, device=dev.type)
+    if cost is None:
+        cost = CostModel(hw=H100_SXM) if dev.type == "cuda" else CostModel()
+    tasks = graph.tasks()
+    dev_tasks = [t for t in tasks if t.thread == DEVICE_STREAM]
+    agg = {"flops": sum(t.flops for t in dev_tasks),
+           "bytes_accessed": sum(t.bytes_accessed for t in dev_tasks),
+           "device_s": sum(t.duration for t in dev_tasks),
+           "device_tasks": float(len(dev_tasks)),
+           "host_tasks": float(len(tasks) - len(dev_tasks)),
+           "span_s": min(spans), "slowest_span_s": max(spans)}
+    return TraceBundle(graph=graph, module=events, aggregates=agg, cost=cost)

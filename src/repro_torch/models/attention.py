@@ -15,6 +15,7 @@ import math
 from typing import Dict, Tuple
 
 import torch
+from torch.profiler import record_function
 
 from repro_torch.kernels import ops
 from .paramdecl import normal_param
@@ -101,12 +102,13 @@ def gqa_qkv(p: Params, x: torch.Tensor, cos, sin
 def gqa_attend(p: Params, x: torch.Tensor, cos, sin, *, causal: bool = True,
                return_cache: bool = False):
     """Prefill/training attention: x (B, S, d) -> (B, S, d) [, {"k","v"}]."""
-    q, k, v = gqa_qkv(p, x, cos, sin)
-    # (B, S, H, hd) tensors go to the kernel as (B, H, S, hd) views; its
-    # output keeps q's memory layout, so the transpose back is free
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal).transpose(1, 2)
-    out = _out(o, p["wo"])
+    with record_function("attn"):
+        q, k, v = gqa_qkv(p, x, cos, sin)
+        # (B, S, H, hd) tensors go to the kernel as (B, H, S, hd) views; its
+        # output keeps q's memory layout, so the transpose back is free
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=causal).transpose(1, 2)
+        out = _out(o, p["wo"])
     if not return_cache:
         return out
     return out, {"k": k, "v": v}
@@ -119,11 +121,12 @@ def gqa_decode(p: Params, x: torch.Tensor, cache: Params, pos: int,
     Writes the new token's K/V into the cache in place (the reference returns
     an updated copy) and returns it.
     """
-    positions = torch.full((1,), pos, device=x.device)   # no host copy
-    cos, sin = rope_angles(positions, p["wq"].shape[-1], theta)
-    q = apply_rope(_proj(x, p["wq"]), cos[None], sin[None])
-    k = apply_rope(_proj(x, p["wk"]), cos[None], sin[None])
-    cache["k"][:, pos:pos + 1] = k
-    cache["v"][:, pos:pos + 1] = _proj(x, p["wv"])
-    o = decode_attention(q, cache["k"], cache["v"], pos + 1)
-    return _out(o, p["wo"]), cache
+    with record_function("attn"):
+        positions = torch.full((1,), pos, device=x.device)   # no host copy
+        cos, sin = rope_angles(positions, p["wq"].shape[-1], theta)
+        q = apply_rope(_proj(x, p["wq"]), cos[None], sin[None])
+        k = apply_rope(_proj(x, p["wk"]), cos[None], sin[None])
+        cache["k"][:, pos:pos + 1] = k
+        cache["v"][:, pos:pos + 1] = _proj(x, p["wv"])
+        o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+        return _out(o, p["wo"]), cache

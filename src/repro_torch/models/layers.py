@@ -2,7 +2,10 @@
 
 Plain functions over dicts of tensors, with the reference's weight layouts.
 ``rmsnorm`` goes through the RMSNorm kernel; plain matmuls stay
-``torch.matmul``, as the JAX package left them to XLA.
+``torch.matmul``, as the JAX package left them to XLA.  Each building block
+runs under the reference's ``jax.named_scope`` name as a
+``torch.profiler.record_function`` scope, from which ``repro_torch.core.kineto``
+maps every kernel to its layer.
 """
 
 from __future__ import annotations
@@ -11,6 +14,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
@@ -26,7 +30,8 @@ def rmsnorm_init(gen: torch.Generator, d: int, dtype) -> Params:
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    return ops.rmsnorm(x, p["scale"], eps)
+    with record_function("norm"):
+        return ops.rmsnorm(x, p["scale"], eps)
 
 
 def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
@@ -34,12 +39,14 @@ def embedding_init(gen: torch.Generator, vocab: int, d: int, dtype) -> Params:
 
 
 def embed(p: Params, ids: torch.Tensor) -> torch.Tensor:
-    return F.embedding(ids, p["table"])
+    with record_function("embed"):
+        return F.embedding(ids, p["table"])
 
 
 def unembed_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
     """(..., d) @ (vocab, d)^T -> (..., vocab)."""
-    return x @ p["table"].T
+    with record_function("unembed"):
+        return x @ p["table"].T
 
 
 def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype, *,
@@ -53,9 +60,10 @@ def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype, *,
 
 def mlp(p: Params, x: torch.Tensor, *, activation: str = "silu") -> torch.Tensor:
     act = ACTIVATIONS[activation]
-    up = x @ p["w_up"]
-    h = act(x @ p["w_gate"]) * up if "w_gate" in p else act(up)
-    return h @ p["w_down"]
+    with record_function("mlp"):
+        up = x @ p["w_up"]
+        h = act(x @ p["w_gate"]) * up if "w_gate" in p else act(up)
+        return h @ p["w_down"]
 
 
 # ------------------------------------------------------- chunked CE loss
@@ -78,14 +86,15 @@ def softmax_cross_entropy_chunked(embed_params: Params, x: torch.Tensor,
     each chunk's logits are recomputed in the backward
     (``torch.utils.checkpoint``, as the reference's ``jax.checkpoint``).
     Returns ``sum(nll * mask) / max(sum(mask), 1)``."""
-    B, S, _ = x.shape
-    m = (mask.float() if mask is not None
-         else torch.ones((B, S), dtype=torch.float32, device=x.device))
-    cs = max(1, min(max(chunk // B, 1), S))
-    table = embed_params["table"]
-    total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for s0 in range(0, S, cs):
-        sl = slice(s0, s0 + cs)
-        total = total + checkpoint(_chunk_nll, x[:, sl], table, labels[:, sl],
-                                   m[:, sl], use_reentrant=False)
-    return total / m.sum().clamp_min(1.0)
+    with record_function("loss"):
+        B, S, _ = x.shape
+        m = (mask.float() if mask is not None
+             else torch.ones((B, S), dtype=torch.float32, device=x.device))
+        cs = max(1, min(max(chunk // B, 1), S))
+        table = embed_params["table"]
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for s0 in range(0, S, cs):
+            sl = slice(s0, s0 + cs)
+            total = total + checkpoint(_chunk_nll, x[:, sl], table, labels[:, sl],
+                                       m[:, sl], use_reentrant=False)
+        return total / m.sum().clamp_min(1.0)

@@ -22,6 +22,7 @@ import dataclasses
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
+from torch.profiler import record_function
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from repro_torch import resolve_device
@@ -138,7 +139,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device
 def _last_logits(cfg: ModelConfig, p: Params, h_last: torch.Tensor
                  ) -> torch.Tensor:
     """h_last: (B, d) -> (B, vocab)."""
-    return h_last @ _unembed_params(cfg, p)["table"].T
+    with record_function("unembed"):
+        return h_last @ _unembed_params(cfg, p)["table"].T
 
 
 def _unembed_params(cfg: ModelConfig, p: Params) -> Params:
@@ -239,7 +241,7 @@ def make_train_step(cfg: ModelConfig, optimizer) -> Callable:
             grads = tree_map(lambda g: g / accum, grads)
         else:
             loss, grads = loss_and_grads(cfg, params, batch)
-        with torch.no_grad():
+        with torch.no_grad(), record_function("update"):
             new_params, new_opt = optimizer.apply(grads, state["opt"], params)
         new_state = {"params": new_params, "opt": new_opt,
                      "step": state["step"] + 1}

@@ -120,6 +120,18 @@ def test_flash_wrapper_rejects_bad_inputs(q_shape, k_shape, dtype, match):
         flash_kernel.flash_attention(q, k, k)
 
 
+def test_flash_attention_accepts_reference_block_keywords():
+    """``ops.flash_attention`` takes the reference's ``block_q``/``block_k``
+    and ignores them: the CUDA kernels choose their own tiles."""
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.standard_normal((1, 4, 40, 16), np.float32))
+    k = torch.from_numpy(rng.standard_normal((1, 2, 40, 16), np.float32))
+    for causal in (True, False):
+        want = ops.flash_attention(q, k, k, causal=causal)
+        got = ops.flash_attention(q, k, k, causal=causal, block_q=16, block_k=32)
+        assert torch.equal(got, want)
+
+
 ADAM_NS = [100, 1024, 5000, 1 << 14]       # as tests/test_kernels.py
 ADAM_KW = dict(lr=3e-4, b1=0.9, b2=0.95, eps=1e-8, wd=0.1, c1=0.2, c2=0.1)
 ADAM_ATOL = (1e-5, 1e-6, 1e-6)              # p, m, v: tests/test_kernels.py's
@@ -311,6 +323,28 @@ def test_flash_kernel_on_gpu(cuda, B, H, KH, S, D, dtype, causal):
     assert flash_kernel.launches == before + 1
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     assert (got.float() - want.float()).abs().max().item() <= FLASH_ATOL[dtype]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [16, 32, 96])
+@pytest.mark.parametrize("S", [1, 7, 64])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("layout", ["bhsd", "bshd"])
+def test_flash_small_head_dims_on_gpu(cuda, D, S, causal, layout):
+    """bf16 head dims that the tensor-core kernel runs in a wider bucket with
+    zero-filled columns, and S below one tile (S = 1 is a one-token prompt)."""
+    B, H, KH = 1, 4, 2
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    if layout == "bshd":
+        q, k, v = (torch.randn(B, S, h, D, generator=gen, device=cuda)
+                   .bfloat16().transpose(1, 2) for h in (H, KH, KH))
+    else:
+        q, k, v = (torch.randn(B, h, S, D, generator=gen, device=cuda).bfloat16()
+                   for h in (H, KH, KH))
+    assert flash_kernel._variant(q, k, v) == "wgmma"
+    got = ops.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    assert (got.float() - want.float()).abs().max().item() <= FLASH_ATOL["bfloat16"]
 
 
 @pytest.mark.gpu

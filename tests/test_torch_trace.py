@@ -1,0 +1,285 @@
+"""repro_torch's trace route: torch.profiler (Kineto) events -> dependency graph.
+
+First a hand-written capture in the shape torch.profiler exports on CUDA
+(complete events, microseconds): one forward matmul under an ``mlp`` scope,
+its backward on the autograd engine's thread, an in-place update under an
+``update`` scope, three launches with their kernels and one
+``cudaStreamSynchronize``.  The graph built from it is pinned exactly: tasks,
+durations, gaps (the untraced host time after a launch as a task of its own),
+edges of all four kinds, layers (the backward kernel's via the autograd
+sequence number) and phases, FLOPs and bytes, and the simulated timeline.
+
+Then a real capture from the card (``tests/data/kineto_smoke_step.json.gz``,
+written by ``tests/data/capture_kineto.py``: one per-leaf AdamW training step
+of the smoke config on an H100): its graph must be acyclic, carry every
+phase, launch every kernel from a host task, map >= 90% of its device time
+to a layer, and simulate to the capture's own span.
+
+Last, ``trace_measured`` on the CPU on the smoke model's training step (the
+CPU route: operators are the tasks).  Timing on a shared CPU is no gate, so
+only structure is asserted.
+"""
+
+import collections
+import gzip
+import json
+import time
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from repro_torch.configs import get_smoke_config  # noqa: E402
+from repro_torch.core import (DEVICE_STREAM, HOST_THREAD, Scenario,  # noqa: E402
+                              TaskKind, graph_from_events, measure_wallclock,
+                              simulate, trace_measured)
+from repro_torch.core.trace import host_span_s  # noqa: E402
+from repro_torch.data import make_batch  # noqa: E402
+from repro_torch.models import init_params, make_train_step  # noqa: E402
+from repro_torch.optim import AdamW  # noqa: E402
+
+MAIN, AUTOGRAD, GPU = (100, 1), (100, 2), (0, 7)
+
+
+def _ev(cat, name, where, ts, dur, **args):
+    return {"ph": "X", "cat": cat, "name": name, "pid": where[0],
+            "tid": where[1], "ts": ts, "dur": dur, "args": args}
+
+
+EVENTS = [
+    {"ph": "M", "name": "process_name", "pid": 100, "args": {"name": "python"}},
+    _ev("user_annotation", "mlp", MAIN, 0, 30),
+    _ev("cpu_op", "aten::mm", MAIN, 2, 20, **{
+        "Sequence number": 7, "Fwd thread id": 0,
+        "Input Dims": [[4, 8], [8, 16]], "Input type": ["float", "float"]}),
+    _ev("cuda_runtime", "cudaLaunchKernel", MAIN, 5, 4, correlation=11),
+    _ev("cpu_op", "autograd::engine::evaluate_function: MmBackward0", AUTOGRAD,
+        50, 40, **{"Sequence number": 7, "Fwd thread id": 1}),
+    _ev("cpu_op", "MmBackward0", AUTOGRAD, 51, 38,
+        **{"Sequence number": 7, "Fwd thread id": 1}),
+    _ev("cpu_op", "aten::mm", AUTOGRAD, 52, 30, **{
+        "Input Dims": [[8, 4], [4, 16]], "Input type": ["float", "float"]}),
+    _ev("cuda_runtime", "cudaLaunchKernel", AUTOGRAD, 60, 5, correlation=12),
+    _ev("user_annotation", "update", MAIN, 200, 30),
+    _ev("cpu_op", "aten::add_", MAIN, 202, 10, **{
+        "Input Dims": [[16], [16], []],
+        "Input type": ["float", "float", "Scalar"]}),
+    _ev("cuda_runtime", "cudaLaunchKernel", MAIN, 204, 3, correlation=13),
+    _ev("cuda_runtime", "cudaStreamSynchronize", MAIN, 240, 100, correlation=14),
+    _ev("kernel", "gemm_fwd", GPU, 10, 40, correlation=11, stream=7),
+    _ev("kernel", "gemm_bwd", GPU, 66, 50, correlation=12, stream=7),
+    _ev("kernel", "add_kernel", GPU, 208, 20, correlation=13, stream=7),
+    {"ph": "f", "cat": "ac2g", "name": "ac2g", "id": 11, "pid": 0, "tid": 7,
+     "ts": 10, "bp": "e"},
+]
+
+
+@pytest.fixture(scope="module")
+def graph():
+    return graph_from_events(EVENTS)
+
+
+def test_tasks_durations_gaps_layers_phases(graph):
+    got = {t.name + ("" if t.thread == DEVICE_STREAM else f"@{t.uid}"):
+           (t.thread, t.kind, round(t.duration * 1e6, 9), round(t.gap * 1e6, 9),
+            t.layer, t.phase)
+           for t in graph.tasks()}
+    host, dev = HOST_THREAD, DEVICE_STREAM
+    assert got == {
+        "cudaLaunchKernel@0": (host, TaskKind.HOST, 4, 0, "mlp", "fwd"),
+        # the untraced host time to the next record (9 -> 60)
+        "untraced host@1": (host, TaskKind.HOST, 51, 0, "mlp", "fwd"),
+        "cudaLaunchKernel@2": (host, TaskKind.HOST, 5, 0, "mlp", "bwd"),
+        "untraced host@3": (host, TaskKind.HOST, 139, 0, "mlp", "bwd"),
+        "cudaLaunchKernel@4": (host, TaskKind.HOST, 3, 0, "update", "update"),
+        "untraced host@5": (host, TaskKind.HOST, 33, 0, "update", "update"),
+        # the wait is the edge: 340 - max(240, end of add_kernel 228)
+        "cudaStreamSynchronize@6": (host, TaskKind.SYNC, 100, 0, None, "fwd"),
+        "gemm_fwd": (dev, TaskKind.COMPUTE, 40, 0, "mlp", "fwd"),
+        "gemm_bwd": (dev, TaskKind.COMPUTE, 50, 0, "mlp", "bwd"),
+        "add_kernel": (dev, TaskKind.COMPUTE, 20, 0, "update", "update"),
+    }
+
+
+def test_edges_of_all_four_kinds(graph):
+    name = {t.uid: (t.name if t.thread == DEVICE_STREAM else f"h{t.uid}")
+            for t in graph.tasks()}
+    edges = {(name[t.uid], name[c.uid]) for t in graph.tasks()
+             for c in graph.children(t)}
+    assert edges == {
+        ("h0", "h1"), ("h1", "h2"), ("h2", "h3"), ("h3", "h4"),      # host order
+        ("h4", "h5"), ("h5", "h6"),
+        ("gemm_fwd", "gemm_bwd"), ("gemm_bwd", "add_kernel"),        # stream order
+        ("h0", "gemm_fwd"), ("h2", "gemm_bwd"), ("h4", "add_kernel"),  # launches
+        ("add_kernel", "h6"),                                         # sync
+    }
+    graph.toposort()
+
+
+def test_costs_from_the_launching_operator(graph):
+    cost = {t.name: (t.flops, t.bytes_accessed, t.attrs["op"])
+            for t in graph.tasks() if t.thread == DEVICE_STREAM}
+    assert cost == {
+        # (4, 8) @ (8, 16): 2*4*8*16 FLOPs; reads 4*(32 + 128), writes 4*64
+        "gemm_fwd": (1024.0, 896.0, "aten::mm"),
+        "gemm_bwd": (1024.0, 896.0, "aten::mm"),
+        # add_ reads two (16,) f32 tensors and writes the first
+        "add_kernel": (0.0, 192.0, "aten::add_"),
+    }
+
+
+def test_simulated_timeline(graph):
+    """Daydream's engine (paper Algorithm 1, the reference's ``simulate``)
+    releases a task's children at its end plus its gap; the launches have no
+    gap, so each kernel is ready when its launch ends, and only the next
+    record waits for the untraced host time.  Relative to the first record
+    (5 us) the capture starts the kernels at 5, 61 and 203 us and the sync at
+    235 us: the simulation puts each kernel 1 us earlier (the launch latency,
+    which the graph does not carry), the sync where the capture has it, and
+    spans the capture's 335 us (5 to 340)."""
+    res = simulate(graph)
+    start = {t.name: round(res.start[t.uid] * 1e6, 9) for t in graph.tasks()
+             if t.thread == DEVICE_STREAM or t.kind == TaskKind.SYNC}
+    assert start == {"gemm_fwd": 4, "gemm_bwd": 60, "add_kernel": 202,
+                     "cudaStreamSynchronize": 235}
+    assert res.makespan == pytest.approx(335e-6, abs=1e-12)
+
+
+def test_nested_runtime_record_is_part_of_the_outer_one():
+    inner = _ev("cuda_driver", "cuLaunchKernelEx", MAIN, 6, 2, correlation=21)
+    kernel = _ev("kernel", "k2", GPU, 12, 3, correlation=21)
+    g = graph_from_events(EVENTS + [inner, kernel])
+    host = g.lane_tasks(HOST_THREAD)
+    assert [t.name for t in host][:3] == ["cudaLaunchKernel", "untraced host",
+                                          "cudaLaunchKernel"]
+    k2 = next(t for t in g.tasks() if t.name == "k2")
+    assert host[0] in g.parents(k2)
+
+
+def test_route_follows_the_device_not_the_capture():
+    """A CUDA capture in which CUPTI traced nothing raises instead of being
+    read as a CPU step; the operator route is taken only on the CPU."""
+    host_only = [e for e in EVENTS if e.get("cat") != "kernel"]
+    with pytest.raises(ValueError, match="no kernel"):
+        graph_from_events(host_only)
+    with pytest.raises(ValueError, match="device"):
+        graph_from_events(EVENTS, device="tpu")
+    g = graph_from_events(host_only, device="cpu")
+    assert [t.name for t in g.tasks()] == ["aten::mm", "aten::mm", "aten::add_"]
+    assert all(t.thread == DEVICE_STREAM for t in g.tasks())
+
+
+# ------------------------------------------------------ a capture from the card
+@pytest.fixture(scope="module")
+def card_capture():
+    path = Path(__file__).resolve().parent / "data" / "kineto_smoke_step.json.gz"
+    with gzip.open(path, "rt") as f:
+        events = json.load(f)["traceEvents"]
+    return events, graph_from_events(events)
+
+
+def test_card_capture_graph(card_capture):
+    _, g = card_capture
+    g.toposort()
+    dev = g.lane_tasks(DEVICE_STREAM)
+    assert len(dev) > 500 and len(g.lane_tasks(HOST_THREAD)) > len(dev)
+    assert {t.phase for t in dev} == {"fwd", "bwd", "update"}
+    assert all(any(p.thread == HOST_THREAD for p in g.parents(t)) for t in dev)
+    total = sum(t.duration for t in dev)
+    mapped = sum(t.duration for t in dev if t.layer is not None)
+    assert mapped >= 0.9 * total
+    assert {t.layer for t in dev if t.phase == "update"} == {"update"}
+    assert {"attn", "mlp", "norm", "loss", "embed"} <= {t.layer for t in dev
+                                                        if t.phase == "bwd"}
+
+
+def test_card_capture_simulates_to_its_span(card_capture):
+    events, g = card_capture
+    host = [e for e in events if e.get("ph") == "X"
+            and e.get("cat") in ("cuda_runtime", "cuda_driver")]
+    span = (max(e["ts"] + e["dur"] for e in host) - min(e["ts"] for e in host)) * 1e-6
+    assert simulate(g).makespan == pytest.approx(span, rel=0.01)
+
+
+def test_card_capture_fused_optimizer(card_capture):
+    _, g = card_capture
+    pred, tf, _ = Scenario(graph=g).evaluate("fused_optimizer")
+    left = [t for t in tf.graph.tasks() if t.phase == "update"]
+    fused = [t for t in left if t.thread == DEVICE_STREAM]
+    launches = [t for t in left if t.kind == TaskKind.HOST]
+    assert [t.name for t in fused] == ["fused_optimizer_kernel"]
+    assert len(launches) == 1 and launches[0] in tf.graph.parents(fused[0])
+    assert pred.predicted < pred.baseline
+
+
+# ------------------------------------------------ trace_measured on the CPU
+@pytest.fixture(scope="module")
+def cpu_bundle():
+    cfg = get_smoke_config("tinyllama-1.1b").with_(dtype="float32")
+    params = init_params(cfg, seed=0, device="cpu")
+    opt = AdamW()
+    state = {"params": params, "opt": opt.init(params),
+             "step": torch.zeros((), dtype=torch.int32)}
+    batch = {k: torch.from_numpy(v) for k, v in
+             make_batch(cfg, seq_len=16, batch=2, step=0).items()}
+    step = make_train_step(cfg, opt)
+    return trace_measured(step, state, batch, device="cpu", warmup=1), step, \
+        (state, batch)
+
+
+def test_cpu_trace_structure(cpu_bundle):
+    bundle, _, _ = cpu_bundle
+    g = bundle.graph
+    g.toposort()                                  # acyclic
+    tasks = g.tasks()
+    assert tasks and all(t.thread == DEVICE_STREAM for t in tasks)
+    assert {t.phase for t in tasks} == {"fwd", "bwd", "update"}
+    layers = collections.Counter(t.layer for t in tasks)
+    assert {"embed", "norm", "attn", "mlp", "loss", "update"} <= set(layers)
+    assert all(t.layer == "update" for t in tasks if t.phase == "update")
+    assert bundle.module and bundle.aggregates["device_tasks"] == len(tasks)
+    assert simulate(g).makespan > 0
+
+
+def test_cpu_trace_fused_optimizer_removes_the_update(cpu_bundle):
+    bundle, _, _ = cpu_bundle
+    n_update = sum(t.phase == "update" for t in bundle.graph.tasks())
+    assert n_update > 1
+    pred, tf, _ = Scenario(graph=bundle.graph, cost=bundle.cost).evaluate(
+        "fused_optimizer")
+    left = [t for t in tf.graph.tasks() if t.phase == "update"]
+    assert [t.name for t in left] == ["fused_optimizer_kernel"]
+    assert len(tf.graph) == len(bundle.graph) - n_update + 1
+    assert pred.predicted < pred.baseline
+
+
+def test_host_span_of_a_capture():
+    # the first host-side record (aten::mm at 2 us) to the end of the sync (340)
+    assert host_span_s(EVENTS) == pytest.approx(338e-6, abs=1e-12)
+
+
+def test_trace_measured_keeps_the_fastest_capture():
+    """Of three profiled calls, the one the host ran slowest (a 50 ms stall
+    between two operators) is not the one the graph is built from."""
+    a = torch.ones(8)
+    calls = []
+
+    def step():
+        calls.append(None)
+        b = a + 1
+        if len(calls) == 2:                      # the first profiled call
+            time.sleep(0.05)
+        return b * 2
+
+    bundle = trace_measured(step, device="cpu", warmup=1, profiles=3)
+    assert len(calls) == 4
+    assert bundle.aggregates["slowest_span_s"] >= 0.05
+    assert bundle.aggregates["span_s"] < 0.05
+    assert host_span_s(bundle.module) == bundle.aggregates["span_s"]
+
+
+def test_measure_wallclock_on_cpu(cpu_bundle):
+    _, step, args = cpu_bundle
+    assert measure_wallclock(step, *args, device="cpu", iters=2, warmup=0) > 0
