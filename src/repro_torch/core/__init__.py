@@ -6,7 +6,7 @@ Public surface:
 
     from repro_torch.core import (
         Task, TaskKind, DependencyGraph, simulate, GraphTransform,
-        trace_measured, CostModel, whatif,
+        trace_compiled, trace_measured, CostModel, whatif,
         ClusterGraph, WorkerSpec,          # N-worker global-graph simulation
         Optimization, Scenario, Stack, Prediction,   # unified what-if API
         register, get_optimization,        # the optimization registry
@@ -19,9 +19,12 @@ predictions agree task for task with ``repro.core``.
 
 Trace acquisition differs: where the reference parses compiled HLO
 (``repro.core.hlo``), the port builds the graph from a torch.profiler
-(Kineto/CUPTI) capture of a real step (:mod:`repro_torch.core.kineto`,
-:func:`repro_torch.core.trace.trace_measured`).  Those two modules import
-torch and are loaded only when one of their names is first read from this
+capture, either of a real step on the card (Kineto/CUPTI:
+:mod:`repro_torch.core.kineto`, :func:`repro_torch.core.trace.trace_measured`)
+or of the step run on meta tensors, priced by the cost model with no card
+(:mod:`repro_torch.core.analytical`,
+:func:`repro_torch.core.trace.trace_compiled`).  Those modules import torch
+and are loaded only when one of their names is first read from this
 package, so ``import repro_torch.core`` stays a pure-Python import.
 """
 
@@ -51,8 +54,10 @@ from . import optimize
 from . import whatif
 
 # name -> module of the trace route, imported on first access
-_LAZY = {"TraceBundle": "trace", "trace_measured": "trace",
-         "measure_wallclock": "trace", "graph_from_events": "kineto"}
+_LAZY = {"TraceBundle": "trace", "trace_compiled": "trace",
+         "trace_measured": "trace", "measure_wallclock": "trace",
+         "graph_from_events": "kineto",
+         "graph_from_meta_events": "analytical"}
 
 
 def __getattr__(name):
@@ -76,9 +81,9 @@ __all__ = [
     "GraphTransform", "predicted_speedup",
     "by_kind", "by_name", "by_layer", "by_phase", "on_device", "all_of", "any_of",
     "CostModel", "CollectiveModel", "MeshTopology",
-    "graph_from_events",
+    "graph_from_events", "graph_from_meta_events",
     "LayerMap", "LayerProfile", "bucket_layers",
-    "TraceBundle", "trace_measured", "measure_wallclock",
+    "TraceBundle", "trace_compiled", "trace_measured", "measure_wallclock",
     "Optimization", "OptimizationError", "PipelineParallel", "Prediction",
     "Scenario", "Stack",
     "available", "get_optimization", "greedy_search", "parse_stack",

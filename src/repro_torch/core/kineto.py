@@ -58,9 +58,12 @@ largest input.
 
 The route follows the device the step ran on, not the capture's content. On
 ``cuda`` a capture with no device record is an error (CUPTI traced nothing).
-On ``cpu`` the graph is one of the operators themselves: every innermost
-``cpu_op`` is a ``device`` task (the CPU is the device), with the untraced
-time to the next one as its gap.
+On ``cpu`` the graph is one of the operators themselves (the CPU is the
+device): each operator that does the work (:func:`task_ops`) is a ``device``
+task, costed from its own recorded shapes, with the untraced time to the
+next one as its gap.  On both routes a task whose operator is a matrix
+product carries ``attrs["opcode"] = "dot"``, as the reference's HLO graphs
+tag theirs, so the AMP what-if classes it as the reference does.
 """
 
 from __future__ import annotations
@@ -83,13 +86,28 @@ _DTYPE_BYTES = {"float": 4, "c10::BFloat16": 2, "c10::Half": 2, "double": 8,
                 "c10::complex<double>": 16, "c10::Float8_e4m3fn": 1,
                 "c10::Float8_e5m2": 1}
 _MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm")
+KERNEL_PREFIX = "repro_torch::"    # the kernels' meta operators (kernels/*.py)
+# aten operators that move no data and compute nothing: views, allocations,
+# metadata, and composites that are no-ops unless a child op does the work
+NO_WORK = frozenset("aten::" + n for n in (
+    "empty", "empty_like", "empty_strided", "empty_permuted", "new_empty",
+    "new_empty_strided", "resize_", "as_strided", "as_strided_", "view",
+    "_unsafe_view", "view_as", "reshape", "_reshape_alias", "expand",
+    "expand_as", "broadcast_to", "t", "numpy_T", "mT", "transpose", "permute",
+    "movedim", "swapaxes", "unsqueeze", "squeeze", "slice", "select",
+    "narrow", "split", "split_with_sizes", "unsafe_split", "chunk", "unbind",
+    "flatten", "unflatten", "diagonal", "unfold", "alias", "detach",
+    "detach_", "lift_fresh", "resolve_conj", "resolve_neg", "real",
+    "result_type", "to", "contiguous", "type_as", "size", "stride", "numel",
+    "dim", "is_nonzero", "_has_compatible_shallow_copy_type",
+    "_debug_has_internal_overlap", "set_", "record_stream"))
 
 
 # ------------------------------------------------------------------ events
 class _Event:
     """One complete event and its place in its thread's nesting."""
 
-    __slots__ = ("e", "name", "cat", "tid", "ts", "end", "parent", "is_leaf")
+    __slots__ = ("e", "name", "cat", "tid", "ts", "end", "parent")
 
     def __init__(self, e: Dict[str, Any]) -> None:
         self.e = e
@@ -99,7 +117,6 @@ class _Event:
         self.ts = float(e["ts"])
         self.end = self.ts + float(e.get("dur", 0.0))
         self.parent: Optional["_Event"] = None
-        self.is_leaf = True
 
     @property
     def args(self) -> Dict[str, Any]:
@@ -126,8 +143,6 @@ def _nest(events: Sequence[_Event]) -> None:
                 stack.pop()
             if stack:
                 ev.parent = stack[-1]
-                if ev.cat == "cpu_op":
-                    stack[-1].is_leaf = False
             stack.append(ev)
 
 
@@ -228,6 +243,46 @@ class _Context:
         return layer, phase, op
 
 
+def _is_work(ev: _Event) -> bool:
+    return (ev.cat == "cpu_op" and ev.name.startswith(("aten::", KERNEL_PREFIX))
+            and ev.name not in NO_WORK)
+
+
+def task_ops(host_side: Sequence[_Event]) -> List[_Event]:
+    """The operators that are tasks when operators are the device's work,
+    in program order: each ``aten::`` operator (or kernel meta operator)
+    that does work and has no such operator below it -- except that an
+    atomic operator is one task with whatever it calls: a matrix product, a
+    kernel's meta operator, and an operator whose implementation is a
+    decomposition into ``prims::`` (on meta tensors a bf16 ``mul`` casts
+    its inputs to f32 with ``copy_`` calls around ``prims::mul``, where the
+    card runs one kernel).  Views, allocations and autograd's own nodes are
+    none (``NO_WORK``)."""
+    ops = [ev for ev in host_side if ev.cat == "cpu_op"]
+    atomic = {id(ev) for ev in ops
+              if ev.name in _MATMULS or ev.name.startswith(KERNEL_PREFIX)}
+    for ev in ops:
+        if ev.name.startswith("prims::"):
+            owner = next((a for a in ev.ancestors() if a.cat == "cpu_op"
+                          and a.name.startswith("aten::")), None)
+            if owner is not None:
+                atomic.add(id(owner))
+    has_work_below, under_atomic = set(), set()
+    for ev in ops:
+        above = [a for a in ev.ancestors() if a.cat == "cpu_op"]
+        if any(id(a) in atomic for a in above):
+            under_atomic.add(id(ev))
+        if _is_work(ev):
+            has_work_below.update(id(a) for a in above)
+    return sorted((ev for ev in ops if _is_work(ev) and id(ev) not in under_atomic
+                   and (id(ev) in atomic or id(ev) not in has_work_below)),
+                  key=lambda ev: (ev.ts, -ev.end))
+
+
+def _opcode(op: Optional[_Event]) -> Dict[str, str]:
+    return {"opcode": "dot"} if op is not None and op.name in _MATMULS else {}
+
+
 # ------------------------------------------------------------------- graph
 def graph_from_events(events: Sequence[Dict[str, Any]],
                       device: str = "cuda") -> DependencyGraph:
@@ -310,7 +365,8 @@ def _cuda_graph(host_side: List[_Event], device: List[_Event],
                  flops=flops / share, bytes_accessed=nbytes / share,
                  attrs={"op": op.name if op else None,
                         "stream": dv.args.get("stream"),
-                        "correlation": dv.args.get("correlation")})
+                        "correlation": dv.args.get("correlation"),
+                        **_opcode(op)})
         dev_tasks[id(dv)] = g.add_task(t)
         if rec is not None:
             g.add_edge(host_tasks[id(rec)], t)
@@ -330,15 +386,14 @@ def _cuda_graph(host_side: List[_Event], device: List[_Event],
 
 def _cpu_graph(host_side: List[_Event], ctx: _Context) -> DependencyGraph:
     g = DependencyGraph()
-    leaves = sorted((ev for ev in host_side if ev.cat == "cpu_op" and ev.is_leaf),
-                    key=lambda ev: (ev.ts, -ev.end))
-    for i, ev in enumerate(leaves):
-        layer, phase, op = ctx.of(ev)
-        flops, nbytes = op_cost(op)
-        nxt = leaves[i + 1].ts if i + 1 < len(leaves) else ev.end
+    ops = task_ops(host_side)
+    for i, ev in enumerate(ops):
+        layer, phase, _ = ctx.of(ev)
+        flops, nbytes = op_cost(ev)
+        nxt = ops[i + 1].ts if i + 1 < len(ops) else ev.end
         g.add_task(Task(name=ev.name, kind=TaskKind.COMPUTE, thread=DEVICE_STREAM,
                         duration=_sec(ev.end - ev.ts),
                         gap=_sec(max(0.0, nxt - ev.end)), layer=layer,
                         phase=phase, flops=flops, bytes_accessed=nbytes,
-                        attrs={"op": ev.name}))
+                        attrs={"op": ev.name, **_opcode(ev)}))
     return g

@@ -5,14 +5,18 @@ under torch.profiler (Kineto over CUPTI) and :mod:`repro_torch.core.kineto`
 turns the capture into a graph whose durations are the measured ones, so
 unlike the reference's ``trace_measured`` nothing is rescaled.
 
+* :func:`trace_compiled` — the reference's analytical route, which needs no
+  card: the step runs once on ``meta`` tensors (``init_params(cfg,
+  device="meta")``, meta batches) under torch.profiler, and
+  :mod:`repro_torch.core.analytical` prices each operator it dispatched,
+  each kernel launch included, with :class:`CostModel` (the H100 SXM's data
+  sheet by default).
 * :func:`trace_measured` — warm up, profile a few calls, build the graph
   of the fastest.
 * :func:`measure_wallclock` — the step's time without the profiler: the
   median over calls of CUDA-event time (host clock on the CPU).
 
-The analytical route of the reference (``trace_compiled``: FLOPs and bytes
-per operator costed by :class:`CostModel`, no hardware needed) and
-``TraceBundle.export_chrome`` (which needs ``traceio``) are not ported yet.
+``TraceBundle.export_chrome`` (which needs ``traceio``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -25,8 +29,10 @@ import time
 from typing import Any, Callable, Dict, List, Optional
 
 import torch
+from torch.utils._pytree import tree_leaves
 
 from repro_torch import resolve_device
+from .analytical import graph_from_meta_events
 from .costmodel import CostModel
 from .graph import DependencyGraph
 from .kineto import graph_from_events
@@ -117,6 +123,26 @@ def host_span_s(events: List[Dict[str, Any]]) -> float:
           and e.get("cat") in ("cpu_op", "cuda_runtime", "cuda_driver")]
     return (max(e["ts"] + e.get("dur", 0) for e in xs)
             - min(e["ts"] for e in xs)) * 1e-6
+
+
+def trace_compiled(fn: Callable, *args, cost: Optional[CostModel] = None,
+                   max_tasks: int = 60_000, **kwargs) -> TraceBundle:
+    """Analytical trace: run ``fn(*args, **kwargs)`` once on meta tensors
+    under torch.profiler and build its graph and the reference's aggregates
+    (``repro.core.hlo.aggregate_costs``'s keys) from the operators it
+    dispatched, priced by ``cost`` (default ``CostModel(hw=H100_SXM)``).
+    Every tensor argument must be on the ``meta`` device: nothing is
+    allocated or computed, on the card or the CPU.  ``compiled`` is None
+    (there is no compiled program)."""
+    bad = [t.device for t in tree_leaves((args, kwargs))
+           if isinstance(t, torch.Tensor) and not t.is_meta]
+    if bad:
+        raise ValueError(f"trace_compiled needs meta tensors, got tensors on "
+                         f"{sorted(set(map(str, bad)))}")
+    cost = cost or CostModel(hw=H100_SXM)
+    events = profile_events(fn, *args, device="meta", **kwargs)
+    graph, agg = graph_from_meta_events(events, cost, max_tasks=max_tasks)
+    return TraceBundle(graph=graph, module=events, aggregates=agg, cost=cost)
 
 
 def trace_measured(fn: Callable, *args, device="cuda",

@@ -1,0 +1,44 @@
+"""The work of one launch of each kernel: FLOPs and the bytes it must move.
+
+Bytes count each input read once and each output written once; FLOPs count
+what the kernel computes on these inputs (flash attention: the two matrix
+products over the (query, key) pairs it visits, 2·D multiply-adds each).
+One copy of these counts serves both ``chip_smoke.py`` (each kernel's bound:
+the larger of bytes over the card's memory rate and FLOPs over its peak) and
+the analytical trace route (``core.analytical``), which prices each kernel's
+launch on meta tensors with them.  Every function returns
+``(flops, bytes)``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+
+def flash_attention(B: int, H: int, KH: int, S: int, D: int, *,
+                    causal: bool = True, itemsize: int = 2
+                    ) -> Tuple[float, float]:
+    """q, o: (B, H, S, D); k, v: (B, KH, S, D); elements of ``itemsize``."""
+    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
+    return 4.0 * D * pairs, float(itemsize * (2 * B * H * S * D
+                                              + 2 * B * KH * S * D))
+
+
+def rmsnorm(rows: int, D: int, *, itemsize: int = 2,
+            w_itemsize: Optional[int] = None) -> Tuple[float, float]:
+    """x, y: (rows, D) of ``itemsize``; w: (D,) of ``w_itemsize`` (default
+    ``itemsize``); about 4 operations per element."""
+    w_size = itemsize if w_itemsize is None else w_itemsize
+    return 4.0 * rows * D, float(itemsize * 2 * rows * D + w_size * D)
+
+
+def fused_adam(n: int) -> Tuple[float, float]:
+    """One AdamW pass over n f32 entries: reads p, g, m, v and writes p, m, v
+    (28 bytes an entry), about 15 operations an entry."""
+    return 15.0 * n, 28.0 * n
+
+
+def dgc_mask(n: int, *, itemsize: int = 2) -> Tuple[float, float]:
+    """n gradient entries of ``itemsize``, read once and written once; a
+    compare and a select each (the kept count's 8 bytes are left out)."""
+    return 2.0 * n, float(2 * n * itemsize)

@@ -7,6 +7,9 @@ Gradient Compression: the threshold (the k-th magnitude, estimated outside
 the kernel) zeroes every entry below it in one pass that also counts the
 survivors.  The source file carries the kernel's note.  Unlike the TPU
 wrapper nothing is padded, and a bf16 gradient is read and written as bf16.
+``dgc_threshold_meta`` is the launch on meta tensors (the analytical trace
+route): the operator ``repro_torch::dgc_mask`` in a profiler capture,
+returning the outputs' shapes and dtypes and computing and counting nothing.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from ._meta import meta_library
 
 launches = 0   # kernel launches since the last reset (see ops.launch_counts)
 
@@ -60,3 +64,16 @@ def dgc_threshold(g: torch.Tensor, thr: torch.Tensor
                            f"{err_str(err).decode()} (cudaError {err})")
     launches += 1
     return out, count
+
+
+_META_LIB = meta_library(
+    "dgc_mask(Tensor g, Tensor thr) -> (Tensor, Tensor)",
+    lambda g, thr: (torch.empty(g.shape, dtype=g.dtype, device=g.device),
+                    torch.empty((), dtype=torch.int64, device=g.device)))
+
+
+def dgc_threshold_meta(g: torch.Tensor, thr: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's launch on meta tensors: (g's shape and dtype, an int64
+    0-dim count)."""
+    return torch.ops.repro_torch.dgc_mask(g, thr)

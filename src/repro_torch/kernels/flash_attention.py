@@ -20,6 +20,13 @@ what its design does about it.  Unlike the TPU wrapper, nothing is padded:
 the kernels mask the ragged S edge and the D columns themselves, and the
 scale uses the real D.  ``FlashAttentionFn`` gives it a gradient through a
 plain PyTorch backward (the TPU kernel has no backward kernel either).
+
+On ``meta`` tensors (the analytical trace route) ``FlashAttentionFn`` calls
+``flash_attention_meta`` instead: the operator ``repro_torch::flash_attention``,
+which returns the output's shape, dtype and layout and computes nothing, so
+a profiler capture holds one operator where the card would launch one
+kernel.  No launch is counted; the backward is the same plain recompute, op
+by op on meta tensors.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ import math
 import torch
 
 from . import _build, ref
+from ._meta import meta_library
 
 launches = 0   # kernel launches since the last reset (see ops.launch_counts)
 launches_by_variant = {"wgmma": 0, "scalar": 0}   # the same launches, per kernel
@@ -124,15 +132,30 @@ def _launch(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o
 
 
+_META_LIB = meta_library(
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
+    lambda q, k, v, causal: torch.empty_like(q))
+
+
+def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool) -> torch.Tensor:
+    """The kernel's launch on meta tensors: its output, ``empty_like(q)`` as
+    ``_launch`` allocates it, and nothing computed or counted."""
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+
+
 class FlashAttentionFn(torch.autograd.Function):
-    """``flash_attention`` with a gradient: the forward launches the kernel;
-    the backward is plain PyTorch (``ref.flash_attention_bwd``, recomputing
-    from the saved q, k, v) and launches no kernel of this module."""
+    """``flash_attention`` with a gradient: the forward launches the kernel
+    (``flash_attention_meta`` on meta tensors); the backward is plain
+    PyTorch (``ref.flash_attention_bwd``, recomputing from the saved q, k,
+    v) and launches no kernel of this module."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool):
         ctx.save_for_backward(q, k, v)
         ctx.causal = causal
+        if q.is_meta:
+            return flash_attention_meta(q, k, v, causal)
         return flash_attention(q, k, v, causal=causal)
 
     @staticmethod

@@ -5,7 +5,10 @@ Replaces the Pallas TPU kernel ``repro/kernels/fused_adam.py``
 (``_adam_kernel`` / ``fused_adam_2d``).  The source file carries the kernel's
 note: what bounds it on the H100 and what its design does about it.  Unlike
 the TPU wrapper nothing is padded or reshaped, and the update is in place:
-``p``, ``m`` and ``v`` are overwritten and returned.
+``p``, ``m`` and ``v`` are overwritten and returned.  ``fused_adam_meta`` is
+the launch on meta tensors (the analytical trace route): the operator
+``repro_torch::fused_adam`` in a profiler capture, computing and counting
+nothing.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from ._meta import meta_library
 
 launches = 0   # kernel launches since the last reset (see ops.launch_counts)
 
@@ -67,3 +71,17 @@ def fused_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
                            f"{err_str(err).decode()} (cudaError {err})")
     launches += 1
     return p, m, v
+
+
+_META_LIB = meta_library(
+    "fused_adam(Tensor(a!) p, Tensor g, Tensor(b!) m, Tensor(c!) v, Tensor lr, "
+    "Tensor c1, Tensor c2, float b1, float b2, float eps, float wd) -> ()",
+    lambda *args: None)
+
+
+def fused_adam_meta(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
+                    v: torch.Tensor, lr: torch.Tensor, c1: torch.Tensor,
+                    c2: torch.Tensor, b1: float, b2: float, eps: float,
+                    wd: float) -> None:
+    """The kernel's launch on meta tensors (p, m, v "updated in place")."""
+    torch.ops.repro_torch.fused_adam(p, g, m, v, lr, c1, c2, b1, b2, eps, wd)

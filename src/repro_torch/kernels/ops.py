@@ -4,7 +4,10 @@ A CPU tensor goes to the plain version in ``ref``; a CUDA tensor goes to the
 hand-written kernel, whose wrapper raises on what it cannot take.  There is no
 fallback from a CUDA tensor to the plain version.  On CUDA, flash attention
 and RMSNorm go through their ``autograd.Function`` (kernel forward, plain
-backward), so gradients flow through them.
+backward), so gradients flow through them.  A ``meta`` tensor (the
+analytical trace route) takes each kernel's meta route: one operator where
+the card would launch the kernel, with the outputs' shapes and dtypes,
+nothing computed and no launch counted.
 """
 
 from __future__ import annotations
@@ -61,6 +64,10 @@ def fused_adam(p: torch.Tensor, g: torch.Tensor, m: torch.Tensor,
     if p.device.type == "cpu":
         return ref.fused_adam_ref(p, g, m, v, lr=lr, b1=b1, b2=b2, eps=eps,
                                   wd=wd, c1=c1, c2=c2)
+    if p.is_meta:
+        _ad.fused_adam_meta(p, g, m, v, _scalar(lr, p), _scalar(c1, p),
+                            _scalar(c2, p), b1, b2, eps, wd)
+        return p, m, v
     return _ad.fused_adam(p, g, m, v, _scalar(lr, p), _scalar(c1, p),
                           _scalar(c2, p), b1=b1, b2=b2, eps=eps, wd=wd)
 
@@ -69,6 +76,8 @@ def dgc_mask(g: torch.Tensor, threshold) -> Tuple[torch.Tensor, torch.Tensor]:
     """Zero entries with |g| < threshold.  Returns (sparse g, kept count)."""
     if g.device.type == "cpu":
         return ref.dgc_mask_ref(g, threshold)
+    if g.is_meta:
+        return _dg.dgc_threshold_meta(g, _scalar(threshold, g))
     return _dg.dgc_threshold(g, _scalar(threshold, g))
 
 

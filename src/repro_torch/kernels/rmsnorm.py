@@ -16,7 +16,10 @@ program still moves a few KB), the whole row in registers as one block of
 ``triton`` is imported at the first launch, not with this module, so the
 module imports on machines without it (the CPU tests use ``ops.rmsnorm``'s
 plain path).  ``RMSNormFn`` gives the kernel a gradient through a plain
-PyTorch backward.
+PyTorch backward; on ``meta`` tensors it calls ``rmsnorm_meta``, the operator
+``repro_torch::rmsnorm``, which stands for the launch in a profiler capture
+(the analytical trace route), returns the output's shape and dtype and
+computes and counts nothing.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import os
 import torch
 
 from . import _build, ref
+from ._meta import meta_library
 
 launches = 0   # kernel launches since the last reset (see ops.launch_counts)
 
@@ -88,15 +92,29 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return y2.reshape(x.shape)
 
 
+_META_LIB = meta_library(
+    "rmsnorm(Tensor x, Tensor w, float eps) -> Tensor",
+    lambda x, w, eps: torch.empty(x.shape, dtype=x.dtype, device=x.device))
+
+
+def rmsnorm_meta(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    """The kernel's launch on meta tensors: its output, of x's shape and
+    dtype, and nothing computed or counted."""
+    return torch.ops.repro_torch.rmsnorm(x, w, eps)
+
+
 class RMSNormFn(torch.autograd.Function):
-    """``rmsnorm`` with a gradient: the forward launches the kernel; the
-    backward is plain PyTorch (``ref.rmsnorm_bwd``, recomputing from the
-    saved x and w) and launches no kernel of this module."""
+    """``rmsnorm`` with a gradient: the forward launches the kernel
+    (``rmsnorm_meta`` on meta tensors); the backward is plain PyTorch
+    (``ref.rmsnorm_bwd``, recomputing from the saved x and w) and launches
+    no kernel of this module."""
 
     @staticmethod
     def forward(ctx, x, w, eps: float):
         ctx.save_for_backward(x, w)
         ctx.eps = eps
+        if x.is_meta:
+            return rmsnorm_meta(x, w, eps)
         return rmsnorm(x, w, eps)
 
     @staticmethod

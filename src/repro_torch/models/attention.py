@@ -12,7 +12,7 @@ Pallas kernel in the reference.  Layouts are the reference's: weights
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 from torch.profiler import record_function
@@ -50,19 +50,27 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
 
 # ------------------------------------------------------------------ decode
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, length: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, length: Union[int, torch.Tensor]
+                     ) -> torch.Tensor:
     """One-token attention against a cache.
 
     q: (B, 1, H, hd); caches: (B, S, K, hd); ``length``: count of valid cache
-    entries *including* the current token (a host int, so no tensor is copied
-    to the device and the stream is not synchronised).
+    entries *including* the current token, as the reference takes it: a 0-d
+    or (B,) integer tensor (per request), or a host int (the serve path's: no
+    tensor is copied to the device and the stream is not synchronised).
     """
     B, _, H, hd = q.shape
     S, K = k_cache.shape[1], k_cache.shape[2]
     qg = q.reshape(B, K, H // K, hd)
     s = torch.einsum("bkgd,bskd->bkgs", qg, k_cache).float() * (
         1.0 / math.sqrt(hd))
-    valid = torch.arange(S, device=q.device) < length           # (S,)
+    pos = torch.arange(S, device=q.device)
+    if isinstance(length, torch.Tensor):
+        ln = length.to(q.device)
+        ln = ln[:, None] if ln.dim() == 1 else ln.reshape(1, 1)
+        valid = (pos[None, :] < ln)[:, None, None, :]           # (B or 1, 1, 1, S)
+    else:
+        valid = pos < length                                    # (S,)
     s = s.masked_fill(~valid, NEG_INF)
     p = torch.softmax(s, dim=-1).to(v_cache.dtype)
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache)

@@ -1,7 +1,7 @@
 """ModelConfig and the model API (counterpart of ``repro/models/model.py``),
 for the dense family:
 
-    init_params(cfg, seed, device)          -> params
+    init_params(cfg, seed, device)          -> params (meta: shapes only)
     loss_fn(cfg, params, batch)             -> scalar loss          (train)
     loss_and_grads(cfg, params, batch)      -> (loss, grads)
     make_train_step(cfg, optimizer)         -> (state, batch) -> (state, metrics)
@@ -112,9 +112,14 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 # -------------------------------------------------------------------- init
 def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
-    """Random parameters from a ``torch.Generator`` seeded with ``seed``."""
+    """Random parameters from a ``torch.Generator`` seeded with ``seed``; on
+    ``device="meta"`` no generator is made and the leaves are meta tensors
+    of the real init's shapes and dtypes (the reference's
+    ``init_params(cfg, None)``, spec mode)."""
     _check_supported(cfg)
-    gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    dev = resolve_device(device)
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(seed))
     dt = torch_dtype(cfg)
     p: Params = {"embed": embedding_init(gen, cfg.vocab, cfg.d_model, dt),
                  "final_norm": rmsnorm_init(gen, cfg.d_model, dt)}

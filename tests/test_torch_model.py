@@ -175,6 +175,41 @@ def test_gqa_decode_matches_reference(smoke):
     _close(cache["v"], jcache["v"])
 
 
+@pytest.mark.parametrize("length,as_tensor", [([3, 7], True), (5, True), (9, False)],
+                         ids=["per-request", "0-d", "int"])
+def test_decode_attention_length_matches_reference(length, as_tensor):
+    """``decode_attention`` takes the reference's per-request ``(B,)`` length
+    and a 0-d tensor as well as the serve path's host int: each entry of the
+    batch sees only its own first ``length`` cache rows.  f32, atol 1e-5."""
+    rng = np.random.default_rng(11)
+    B, S, H, K, hd = 2, 10, 4, 2, 8
+    q = rng.standard_normal((B, 1, H, hd), np.float32)
+    kc, vc = (rng.standard_normal((B, S, K, hd), np.float32) for _ in range(2))
+    want = jax_attention.decode_attention(jnp.asarray(q), jnp.asarray(kc),
+                                          jnp.asarray(vc), jnp.asarray(length))
+    ln = torch.tensor(length) if as_tensor else length
+    got = attention.decode_attention(*(torch.from_numpy(a) for a in (q, kc, vc)), ln)
+    assert got.shape == (B, 1, H, hd)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+
+
+def test_engine_decode_passes_a_host_int_length(smoke, monkeypatch):
+    """The serve path keeps its no-sync length: every decode step hands
+    ``decode_attention`` a Python int."""
+    cfg, params = smoke[2], smoke[3]
+    seen = []
+    plain = attention.decode_attention
+
+    def spy(q, k, v, length):
+        seen.append(type(length))
+        return plain(q, k, v, length)
+
+    monkeypatch.setattr(attention, "decode_attention", spy)
+    ServeEngine(cfg, params, max_seq=16, device="cpu").generate(
+        [Request([3, 5, 7], 3), Request([2, 4], 3)])
+    assert seen and set(seen) == {int}
+
+
 # ------------------------------------------------------------- whole model
 def test_prefill_logits_and_caches_match_reference(smoke):
     jmodel, jparams, cfg, params = smoke

@@ -255,6 +255,25 @@ def test_cpu_trace_fused_optimizer_removes_the_update(cpu_bundle):
     assert pred.predicted < pred.baseline
 
 
+def test_cpu_trace_costs_each_operator_from_its_own_shapes(cpu_bundle):
+    """On the CPU route every matrix product is a task of its own, with the
+    FLOPs of its own recorded shapes (2·M·N·K) and the reference's ``dot``
+    opcode, so AMP divides it by the matrix-product factor; no task comes
+    from a view or an allocation."""
+    from repro_torch.core.kineto import NO_WORK
+    bundle, _, _ = cpu_bundle
+    tasks = bundle.graph.tasks()
+    dots = [t for t in tasks if t.name in ("aten::mm", "aten::addmm", "aten::bmm")]
+    assert len(dots) > 10 and {t.name for t in dots} >= {"aten::mm", "aten::bmm"}
+    assert all(t.flops > 0 and t.attrs["opcode"] == "dot" for t in dots)
+    assert not [t.name for t in tasks if t.name in NO_WORK]
+    _, tf, _ = Scenario(graph=bundle.graph, cost=bundle.cost).evaluate("amp")
+    after = {t.uid: t.duration for t in tf.graph.tasks()}
+    assert all(after[t.uid] == pytest.approx(t.duration / 3) for t in dots)
+    adds = [t for t in tasks if t.name == "aten::add_"]
+    assert adds and all(after[t.uid] == pytest.approx(t.duration / 2) for t in adds)
+
+
 def test_host_span_of_a_capture():
     # the first host-side record (aten::mm at 2 us) to the end of the sync (340)
     assert host_span_s(EVENTS) == pytest.approx(338e-6, abs=1e-12)
