@@ -52,13 +52,26 @@
    AMP-predicted, bfloat16 measured); both speedups above 1 and the launch
    counts exact (per step 22 flash, all on ``scalar`` in float32 and on
    ``wgmma`` in bfloat16, 45 RMSNorm, 1 fused_adam); the prediction errors
-   printed, not gated.  Then the analytical route (``trace_compiled``) on
-   meta tensors of both steps: 22 flash, 45 RMSNorm and 1 fused_adam tasks,
-   a phase on every device task, the allocated device memory unchanged,
-   its simulated step against the measured one and its AMP prediction
-   printed;
-8. the ``whatif``, ``amp`` and ``kernels`` JSON lines, then the last line
-   ``{"ok": true, "device": {...}}``.
+   printed, not gated (the float32 trace's launch-queue waits are
+   device -> host edges, ``core/kineto.py``).  Then the analytical route
+   (``trace_compiled``) on meta tensors of both steps: 22 flash, 45 RMSNorm
+   and 1 fused_adam tasks, a phase on every device task, the allocated
+   device memory unchanged, its simulated step against the measured one and
+   its AMP prediction printed;
+8. traceio: the captures of phases 6 and 7, profiled nothing again, through
+   ``repro_torch.traceio`` and ``repro_torch.analysis``: the bfloat16 fused
+   step written as torch.profiler exports it and read back by
+   ``load_trace_dir``, then exported with ``TraceBundle.export_chrome`` and
+   re-imported (each within 1e-6 of ``trace_measured``'s makespan); the
+   per-leaf step with ``fused_optimizer`` diffed against the fused capture
+   task by task (per-kind WAPE, makespan error, top 5); the fused step's
+   critical path and the registry's opportunity bounds; ``calibrate`` on the
+   capture itself (a faithful replay, loss 0) and the H100 cost model's
+   constants fitted to it, with the analytical bfloat16 step priced before
+   and after;
+9. the card's name and power limit again (the limit the run ended under),
+   the ``whatif``, ``amp``, ``traceio`` and ``kernels`` JSON lines, then the
+   last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 without the repository's ``src`` beside this file, it fails at once.
@@ -67,9 +80,12 @@ without the repository's ``src`` beside this file, it fails at once.
 from __future__ import annotations
 
 import bisect
+import dataclasses
 import json
+import math
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -80,10 +96,13 @@ import torch.nn.functional as F
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.core import (DEVICE_STREAM, HOST_THREAD,  # noqa: E402
-                              GraphTransform, Scenario, TaskKind, all_of,
-                              measure_wallclock, on_device, trace_compiled,
+from repro_torch.analysis import rank_opportunities  # noqa: E402
+from repro_torch.core import (DEVICE_STREAM, H100_SXM, HOST_THREAD,  # noqa: E402
+                              ClusterGraph, CostModel, GraphTransform,
+                              Scenario, TaskKind, all_of, measure_wallclock,
+                              on_device, simulate, trace_compiled,
                               trace_measured)
+from repro_torch.core.kineto import WAIT_CAT, WAIT_NAME  # noqa: E402
 from repro_torch.data import Prefetcher, make_batch  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cost as kernel_cost  # noqa: E402
@@ -93,6 +112,7 @@ from repro_torch.models import (build_model, init_cache,  # noqa: E402
                                 init_params, loss_and_grads, make_train_step)
 from repro_torch.optim import AdamW, opt_state  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.traceio import load_trace_dir  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
 DEV = "cuda"
@@ -133,6 +153,8 @@ WHATIF_ITERS = 5                     # timed steps per measure_wallclock call
 FIDELITY_TOL, PREDICT_TOL = 0.10, 0.16   # simulated vs measured; paper's band
 DGC_RATIO = 0.01
 ARCH = "tinyllama-1.1b"
+PT_TRACE = "step.pt.trace.json.gz"   # a capture as torch.profiler exports it
+ROUNDTRIP_TOL = 1e-6                 # tests/golden/trace_roundtrip.json's bound
 
 
 def fail(msg: str) -> None:
@@ -232,17 +254,22 @@ def _autograd(fn, inputs, dout):
 
 
 # --------------------------------------------------------------- phases
-def device_phase() -> str:
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this run needs an NVIDIA GPU")
-    name = torch.cuda.get_device_name(0)
+def card() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60)
     if smi.returncode != 0:
         fail(f"nvidia-smi failed: {smi.stderr.strip()}")
+    return smi.stdout.strip().splitlines()[0]
+
+
+def device_phase() -> str:
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this run needs an NVIDIA GPU")
+    name = torch.cuda.get_device_name(0)
     print(f"device: {name}; torch {torch.__version__} cuda {torch.version.cuda}")
-    print(smi.stdout.strip().splitlines()[0])
+    print(card())
     return name
 
 
@@ -759,8 +786,9 @@ def update_phase(grads, state, params) -> None:
           f"{um / fm:.2f}x, host ratio {uh / fh:.2f}x")
 
 
-def whatif_phase(cfg, name: str, kernels: list) -> dict:
-    """Predict -> implement -> measure for FusedAdam at the train shape.
+def whatif_phase(cfg, name: str, kernels: list, traces: Path) -> dict:
+    """Predict -> implement -> measure for FusedAdam at the train shape; the
+    kept capture of the per-leaf step is written under ``traces/perleaf``.
     Returns the ``whatif`` JSON object."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -782,7 +810,9 @@ def whatif_phase(cfg, name: str, kernels: list) -> dict:
     perleaf, fused = stepper("per-leaf"), stepper("fused")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    bundle = trace_measured(perleaf, device=DEV)
+    (traces / "perleaf").mkdir(parents=True)
+    bundle = trace_measured(perleaf, device=DEV,
+                            save_to=str(traces / "perleaf" / PT_TRACE))
     trace_s = time.perf_counter() - t0
     g = bundle.graph
     g.toposort()                                   # raises on a cycle
@@ -957,12 +987,15 @@ def _meta_trace(cfg):
     return bundle, time.perf_counter() - t0
 
 
-def amp_phase(cfg, name: str, kernels: list) -> dict:
+def amp_phase(cfg, name: str, kernels: list, traces: Path, handoff: dict) -> dict:
     """Predict -> implement -> measure for AMP (paper Algorithm 3) at the
     train shape with ``AdamW(fused=True)``: the baseline is the float32
     config, the implementation the bfloat16 one (the reference's precision
     pair is a dtype switch too), same init seed and batch.  Then the
-    analytical route on the same step.  Returns the ``amp`` JSON object."""
+    analytical route on the same step.  The bfloat16 step's kept capture is
+    written under ``traces/fused``; its bundle (``fused``), measured ms
+    (``fused_ms``) and meta-tensor trace (``meta16``) go into ``handoff``.
+    Returns the ``amp`` JSON object."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     L = cfg.n_layers
@@ -1002,13 +1035,20 @@ def amp_phase(cfg, name: str, kernels: list) -> dict:
     pred_ms, fused_pred_ms = pred.predicted * 1e3, fused_pred.predicted * 1e3
     diag_ms = _amp_except(g32, lambda t: (t.layer == "attn" and t.phase == "bwd")
                           or t.phase == "update")
-    # the host lane's records and untraced time: where the launch queue holds
-    # the host back, this carries the device's pace, which AMP does not divide
+    # the host lane's records and untraced time, the launch-queue waits moved
+    # to device -> host edges (kineto: each released launch keeps only the
+    # time it took after its release)
     host_ms = sum(t.duration + t.gap for t in g32.lane_tasks(HOST_THREAD)) * 1e3
+    waits = sum(e.get("cat") == WAIT_CAT and e.get("name") == WAIT_NAME
+                for e in b32.module)
+    released = sum(t.kind == TaskKind.HOST and any(
+        p.thread == DEVICE_STREAM for p in g32.parents(t))
+        for t in g32.lane_tasks(HOST_THREAD))
     print(f"amp: torch.backends.cuda.matmul.allow_tf32 = {tf32} (left as it is); "
           f"float32 step traced in {trace_s:.1f}s: {len(g32.lane_tasks(DEVICE_STREAM))} "
           f"device and {len(g32.lane_tasks(HOST_THREAD))} host tasks ({host_ms:.3f} ms "
-          f"of host time), simulated {sim_ms:.3f} ms; amp predicts {pred_ms:.3f} ms ({pred.speedup:.4f}x), "
+          f"of host time after {waits} command-buffer waits released {released} host "
+          f"tasks), simulated {sim_ms:.3f} ms; amp predicts {pred_ms:.3f} ms ({pred.speedup:.4f}x), "
           f"with the attention backward and the update left alone {diag_ms:.3f} ms "
           f"({sim_ms / diag_ms:.4f}x); fused_optimizer on the same graph "
           f"{fused_pred_ms:.3f} ms ({fused_pred.speedup:.4f}x)")
@@ -1017,7 +1057,8 @@ def amp_phase(cfg, name: str, kernels: list) -> dict:
     for label, fn in (("fp32", fp32), ("bf16", bf16), ("fp32 2", fp32)):
         meas[label] = measure_wallclock(fn, device=DEV, iters=WHATIF_ITERS,
                                         warmup=1) * 1e3
-    b16 = trace_measured(bf16, device=DEV)
+    (traces / "fused").mkdir(parents=True)
+    b16 = trace_measured(bf16, device=DEV, save_to=str(traces / "fused" / PT_TRACE))
     queue = {"fp32": _launch_queue(b32.module), "bf16": _launch_queue(b16.module)}
     issue = {"fp32": _issue_and_wait(fp32), "bf16": _issue_and_wait(bf16)}
     print("amp: how far the host runs ahead: " + "; ".join(
@@ -1064,13 +1105,14 @@ def amp_phase(cfg, name: str, kernels: list) -> dict:
           f"{diag_err:+.2%} (printed, not gated: the paper's band is "
           f"{PREDICT_TOL:.0%}, but the port's bfloat16 step keeps the attention "
           f"backward in float32, and Algorithm 3 divides device tasks only, not "
-          f"the host time above); speedup "
+          f"the host's own time above); speedup "
           f"predicted {speedups[0]:.4f}x, measured {speedups[1]:.4f}x (need both > 1)")
     if abs(fidelity) > FIDELITY_TOL:
         fail(f"simulated float32 step {sim_ms:.3f} ms is {fidelity:+.2%} off the "
              f"measured {base_ms:.3f} ms")
     if min(speedups) <= 1:
         fail(f"AMP speedups predicted {speedups[0]:.4f}x, measured {speedups[1]:.4f}x")
+    handoff.update(fused=b16, fused_ms=meas["bf16"])
     del states, step_fns, b32, b16, g32, scen, pred, tf_amp, fused_pred
     torch.cuda.empty_cache()
 
@@ -1078,6 +1120,7 @@ def amp_phase(cfg, name: str, kernels: list) -> dict:
     before = torch.cuda.memory_allocated()
     m16, meta16_s = _meta_trace(cfg)
     m32, meta32_s = _meta_trace(cfgs["fp32"])
+    handoff["meta16"] = m16
     after = torch.cuda.memory_allocated()
     dev = m16.graph.lane_tasks(DEVICE_STREAM)
     tasks = {k: sum(t.attrs.get("kernel") == k for t in dev)
@@ -1107,6 +1150,7 @@ def amp_phase(cfg, name: str, kernels: list) -> dict:
             "measured_speedup": speedups[1], "error": err,
             "diagnostic_predicted_ms": diag_ms, "diagnostic_error": diag_err,
             "fused_optimizer_predicted_ms": fused_pred_ms, "fp32_host_lane_ms": host_ms,
+            "fp32_command_buffer_waits": waits, "fp32_released_host_tasks": released,
             "in_flight_max": {k: v[0] for k, v in queue.items()},
             "launch_lead_ms": {k: v[1] for k, v in queue.items()},
             "issue_wait_ms": issue,
@@ -1121,6 +1165,124 @@ def amp_phase(cfg, name: str, kernels: list) -> dict:
                            "amp_predicted_speedup": meta_pred.speedup,
                            "device_tasks": len(dev), "kernel_tasks": tasks,
                            "capture_s": [meta16_s, meta32_s]}}
+
+
+def _priced(graph, cost):
+    """A copy of a captured step graph with every device task priced by
+    ``cost`` from its FLOPs and bytes, as the analytical route prices an
+    operator (host tasks keep their captured times)."""
+    tf = GraphTransform(graph)
+    for t in tf.graph.lane_tasks(DEVICE_STREAM):
+        t.duration = cost.compute_time(t.flops, t.bytes_accessed)
+    return tf.graph
+
+
+def traceio_phase(name: str, traces: Path, handoff: dict) -> dict:
+    """The whatif and amp phases' captures through ``repro_torch.traceio``
+    and ``repro_torch.analysis`` (paper §6's task-level check), profiling
+    nothing again: the bfloat16 fused step (amp phase) written as
+    torch.profiler exports it, read back with ``load_trace_dir`` and held to
+    ``trace_measured``'s makespan, exported with ``TraceBundle.export_chrome``
+    and re-imported (both within 1e-6); the per-leaf step (whatif phase)
+    with ``fused_optimizer`` diffed against the fused capture task by task;
+    the fused step's critical path and the registry's opportunity bounds;
+    the capture calibrated against itself (a faithful replay: nothing to
+    fit), then the cost model's constants fitted to the capture (each device
+    task priced by ``CostModel(hw=H100_SXM)`` against its captured time) and
+    the analytical bfloat16 step priced with them.  Returns the ``traceio``
+    JSON object."""
+    t0 = time.perf_counter()
+    bundle, meta16 = handoff["fused"], handoff["meta16"]
+    cost = CostModel(hw=H100_SXM)
+    want = bundle.simulate().makespan
+    fused = load_trace_dir(str(traces / "fused"))
+    load_s = time.perf_counter() - t0
+    got = simulate(fused.graphs[0]).makespan
+    (traces / "export").mkdir()
+    bundle.export_chrome(str(traces / "export" / "worker0.trace.json"))
+    back = simulate(load_trace_dir(str(traces / "export")).graphs[0]).makespan
+    rt = {"import": got / want - 1, "export_reimport": back / want - 1}
+    print(f"traceio: the fused bfloat16 step's capture ({PT_TRACE}) read back by "
+          f"load_trace_dir in {load_s:.1f}s: {len(fused.graphs[0])} tasks, simulated "
+          f"{got * 1e3:.6f} ms against trace_measured's {want * 1e3:.6f} ms ({rt['import']:+.3g}); "
+          f"export_chrome and re-import {back * 1e3:.6f} ms ({rt['export_reimport']:+.3g}) "
+          f"(need both within {ROUNDTRIP_TOL:g})")
+    if max(map(abs, rt.values())) > ROUNDTRIP_TOL:
+        fail(f"trace round trip off the captured step's makespan: {rt}")
+
+    t1 = time.perf_counter()
+    perleaf = Scenario(trace_dir=str(traces / "perleaf"), cost=cost)
+    diff = perleaf.diff_against(fused, "fused_optimizer")
+    kinds = diff.per_kind()
+    top = diff.top_mispredicted(5)
+    print(f"traceio: per-leaf capture with fused_optimizer against the fused "
+          f"capture ({time.perf_counter() - t1:.1f}s):")
+    for line in diff.format(top=5).splitlines():
+        print(f"traceio:   {line[:200]}")
+    if not diff.tasks:
+        fail("the diff matched no task")
+
+    t1 = time.perf_counter()
+    base = Scenario(traces=fused, cost=cost)
+    cp = base.predict("noop").critical_path
+    fractions = cp.fractions()
+    opps = rank_opportunities(base)
+    print(f"traceio: fused step's critical path ({len(cp.segments)} segments, "
+          f"{cp.makespan * 1e3:.3f} ms): " + ", ".join(
+              f"{k} {v:.4f}" for k, v in fractions.items())
+          + "; opportunity bounds " + ", ".join(
+              f"{o.optimization.name} {o.bound:.4f}x" for o in opps)
+          + f" ({time.perf_counter() - t1:.1f}s)")
+    if abs(sum(fractions.values()) - 1) > 1e-9 or abs(cp.makespan - got) > 1e-9 * got:
+        fail(f"critical path {cp.makespan} s, fractions {fractions}, against {got} s")
+
+    t1 = time.perf_counter()
+    _, own = base.calibrate()
+    priced = dataclasses.replace(fused, graphs=[_priced(fused.graphs[0], cost)])
+    calibrated, rep = Scenario(traces=priced, cost=cost).calibrate()
+    meta_ms = meta16.simulate().makespan * 1e3
+    meta_cal_ms = ClusterGraph.from_worker_graphs(
+        [meta16.graph], cost=calibrated.cost).simulate().makespan * 1e3
+    fitted = {k: v[1] for k, v in rep.fitted.items()}
+    print(f"traceio: calibrate on the fused capture itself: loss "
+          f"{own.loss_before:.3g} -> {own.loss_after:.3g} in {own.sim_calls} "
+          f"simulator call(s) (need a faithful replay, loss < 1e-9); the cost "
+          f"model against the same capture ({time.perf_counter() - t1:.1f}s):")
+    for line in rep.format().splitlines():
+        print(f"traceio:   {line}")
+    print(f"traceio: analytical bfloat16 step (trace_compiled) {meta_ms:.3f} ms = "
+          f"{meta_ms / handoff['fused_ms']:.4f} of the measured "
+          f"{handoff['fused_ms']:.3f} ms; with the fitted constants {meta_cal_ms:.3f} "
+          f"ms = {meta_cal_ms / handoff['fused_ms']:.4f} (printed, not gated); phase "
+          f"{time.perf_counter() - t0:.1f}s")
+    if own.loss_before > 1e-9 or rep.loss_after > rep.loss_before:
+        fail(f"calibration: own capture loss {own.loss_before}, cost model "
+             f"{rep.loss_before} -> {rep.loss_after}")
+    return {"device": name, "capture": f"bf16 fused train_4k step, {PT_TRACE}",
+            "tasks": len(fused.graphs[0]), "roundtrip_rel_err": rt,
+            "simulated_ms": got * 1e3,
+            "diff": {"baseline": "per-leaf + fused_optimizer",
+                     "captured": "fused", "matched": len(diff.tasks),
+                     "unmatched_predicted": len(diff.unmatched_predicted),
+                     "unmatched_captured": len(diff.unmatched_captured),
+                     "makespan_rel_err": diff.makespan_rel_error,
+                     "wape": {k: v.wape for k, v in kinds.items()},
+                     "top": [{"thread": d.thread, "name": d.name[:80],
+                              "occurrence": d.occurrence, "dur_error_ms": d.dur_error * 1e3,
+                              "start_error_ms": d.start_error * 1e3} for d in top]},
+            "critical_path": fractions,
+            "opportunities": {o.optimization.name: o.bound if math.isfinite(o.bound)
+                              else None for o in opps},    # None: unbounded
+            "calibration": {"own_capture_loss": own.loss_before,
+                            "fitted": fitted, "loss_before": rep.loss_before,
+                            "loss_after": rep.loss_after,
+                            "wape_before": {k: v.wape for k, v in rep.before.per_kind().items()},
+                            "wape_after": {k: v.wape for k, v in rep.after.per_kind().items()},
+                            "analytical_bf16_ms": meta_ms,
+                            "analytical_bf16_calibrated_ms": meta_cal_ms,
+                            "ratio_to_measured": [meta_ms / handoff["fused_ms"],
+                                                  meta_cal_ms / handoff["fused_ms"]]},
+            "phase_s": time.perf_counter() - t0}
 
 
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
@@ -1254,8 +1416,12 @@ def main() -> None:
     n_params = serve_phase(cfg, kernels)
     kernels += adam_dgc_phase(n_params)
     train_phase(cfg, kernels, n_params)
-    whatif = whatif_phase(cfg, name, kernels)
-    amp = amp_phase(cfg, name, kernels)
+    with tempfile.TemporaryDirectory() as tmp:
+        traces, handoff = Path(tmp), {}
+        whatif = whatif_phase(cfg, name, kernels, traces)
+        amp = amp_phase(cfg, name, kernels, traces, handoff)
+        traceio = traceio_phase(name, traces, handoff)
+        del handoff
     for kern in kernels:    # the count from this slice's main path, or its own
         paths = kern["launches_by_path"]
         kern["launches"] = paths.get("amp") or paths.get("dgc", 0)
@@ -1265,8 +1431,10 @@ def main() -> None:
     extra = ["scalar_ms", "scalar_max_abs_err", "share_of_bound", "ratio_to_library",
              "scalar_source", "launches_by_variant", "train_shape", "library_call"]
     print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
+    print(card())           # again at the end: the limit the run ended under
     print(json.dumps({"whatif": whatif}))
     print(json.dumps({"amp": amp}))
+    print(json.dumps({"traceio": traceio}))
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

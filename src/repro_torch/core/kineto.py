@@ -32,6 +32,19 @@ record whose name contains ``Synchronize``): the call ends after the last
 device task launched before it, and its duration becomes what it took after
 that task had finished (the wait itself is the edge).
 
+Launch-queue back-pressure gets the same treatment.  The host runs ahead of
+the card until the CUDA driver's command buffer is full; the next launch then
+blocks until the card has worked through enough of the queue.  CUPTI
+records each such block as an ``overhead`` event named ``Command Buffer
+Full`` (in the card's captures of the train step, inside launch records).
+Each wait is released by the device task that ended last before the wait
+ended: that task gets an edge to the host task whose captured span holds
+the wait's end, and the host task's duration becomes what it took after
+that task had finished.  The host lane then holds the host's own time, and
+a what-if that shrinks the device moves the blocked launches up with it.  A
+capture with no such event (a host that never waited) builds the graph it
+built before.
+
 Layer and phase (§4.3), from the ``record_function`` scopes around the
 *launching* operator (the innermost ``cpu_op`` that encloses the runtime
 record):
@@ -68,6 +81,7 @@ tag theirs, so the AMP what-if classes it as the reference does.
 
 from __future__ import annotations
 
+import bisect
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from .graph import DependencyGraph
@@ -77,6 +91,9 @@ DEVICE_CATS = {"kernel": TaskKind.COMPUTE, "gpu_memcpy": TaskKind.MEMORY,
                "gpu_memset": TaskKind.MEMORY}
 HOST_CATS = ("cuda_runtime", "cuda_driver")
 OP_CATS = ("cpu_op", "user_annotation")
+# CUPTI's record of a launch blocked on a full command buffer (Kineto's
+# ``overhead`` category)
+WAIT_CAT, WAIT_NAME = "overhead", "Command Buffer Full"
 ENGINE = "autograd::engine::evaluate_function"
 UPDATE_SCOPE = "update"
 
@@ -302,7 +319,9 @@ def graph_from_events(events: Sequence[Dict[str, Any]],
     if not records:
         raise ValueError("a CUDA capture with no kernel, memcpy or memset "
                          "record: CUPTI traced nothing on the card")
-    return _cuda_graph(host_side, records, ctx)
+    waits = sorted(ev.end for ev in complete
+                   if ev.cat == WAIT_CAT and ev.name == WAIT_NAME)
+    return _cuda_graph(host_side, records, ctx, waits)
 
 
 def _sec(us: float) -> float:
@@ -310,7 +329,8 @@ def _sec(us: float) -> float:
 
 
 def _cuda_graph(host_side: List[_Event], device: List[_Event],
-                ctx: _Context) -> DependencyGraph:
+                ctx: _Context, waits: Sequence[float]) -> DependencyGraph:
+    """``waits`` are the end times of the capture's command-buffer waits."""
     g = DependencyGraph()
     records = sorted((ev for ev in host_side if ev.cat in HOST_CATS),
                      key=lambda ev: (ev.ts, -ev.end))
@@ -336,23 +356,32 @@ def _cuda_graph(host_side: List[_Event], device: List[_Event],
             op = info[id(rec)][2]
             per_op[id(op)] = per_op.get(id(op), 0) + 1
 
+    # the host lane's captured spans in order: (start, end, task, position of
+    # its record in ``top``, whether it is the record itself); a wait is
+    # charged to the span that holds its end
+    spans: List[Tuple[float, float, Task, int, bool]] = []
     host_tasks: Dict[int, Task] = {}
     for i, ev in enumerate(top):
         layer, phase, op = info[id(ev)]
         nxt = top[i + 1].ts if i + 1 < len(top) else ev.end
         gap = _sec(max(0.0, nxt - ev.end))
-        launches = id(ev) in launched_by
+        # the untraced time after a launch (or one that holds a wait's end)
+        # is a host task of its own, not the record's gap
+        k = bisect.bisect_right(waits, ev.end)
+        own = id(ev) in launched_by or (k < len(waits) and waits[k] <= nxt)
         sync = "Synchronize" in ev.name
         t = Task(name=ev.name, kind=TaskKind.SYNC if sync else TaskKind.HOST,
                  thread=HOST_THREAD, duration=_sec(ev.end - ev.ts),
-                 gap=0.0 if launches else gap, layer=layer, phase=phase,
+                 gap=0.0 if own else gap, layer=layer, phase=phase,
                  attrs={"op": op.name if op else None,
                         "correlation": ev.args.get("correlation")})
         host_tasks[id(ev)] = g.add_task(t)
-        if launches and gap > 0:
-            g.add_task(Task(name="untraced host", kind=TaskKind.HOST,
-                            thread=HOST_THREAD, duration=gap, layer=layer,
-                            phase=phase, attrs={"op": None, "correlation": None}))
+        spans.append((ev.ts, ev.end, t, i, True))
+        if own and gap > 0:
+            u = g.add_task(Task(name="untraced host", kind=TaskKind.HOST,
+                                thread=HOST_THREAD, duration=gap, layer=layer,
+                                phase=phase, attrs={"op": None, "correlation": None}))
+            spans.append((ev.end, nxt, u, i, False))
 
     dev_tasks: Dict[int, Task] = {}
     for dv in device:
@@ -371,6 +400,9 @@ def _cuda_graph(host_side: List[_Event], device: List[_Event],
         if rec is not None:
             g.add_edge(host_tasks[id(rec)], t)
 
+    if waits:
+        _release_waits(g, spans, device, dev_tasks, owner, top, waits)
+
     # device -> host: a synchronising call waits for every earlier launch
     last: Optional[_Event] = None
     for ev in top:
@@ -382,6 +414,36 @@ def _cuda_graph(host_side: List[_Event], device: List[_Event],
             if last is None or dv.ts > last.ts:
                 last = dv
     return g
+
+
+def _release_waits(g: DependencyGraph, spans, device: List[_Event],
+                   dev_tasks: Dict[int, Task], owner: Dict[Any, _Event],
+                   top: List[_Event], waits: Sequence[float]) -> None:
+    """device -> host at each command-buffer wait: the device task that
+    ended last before the wait ended releases the host task whose span holds
+    that end, which keeps only the time it took after the release.  A device
+    task cannot release the record that launched it, nor anything before."""
+    by_end = sorted(device, key=lambda dv: dv.end)
+    ends = [dv.end for dv in by_end]
+    pos = {id(ev): i for i, ev in enumerate(top)}
+    starts = [sp[0] for sp in spans]
+    release: Dict[int, _Event] = {}         # span index -> releasing record
+    for w in waits:
+        s = bisect.bisect_right(starts, w) - 1
+        d = bisect.bisect_right(ends, w) - 1
+        if s < 0 or d < 0 or w > spans[s][1]:
+            continue
+        dv = by_end[d]
+        rec = owner.get(dv.args.get("correlation"))
+        _, _, t, i, record = spans[s]
+        if rec is not None and (pos[id(rec)] > i or (pos[id(rec)] == i and record)):
+            continue
+        if s not in release or dv.end > release[s].end:
+            release[s] = dv
+    for s, dv in release.items():
+        start, end, t, _, _ = spans[s]
+        g.add_edge(dev_tasks[id(dv)], t)
+        t.duration = _sec(max(0.0, end - max(start, dv.end)))
 
 
 def _cpu_graph(host_side: List[_Event], ctx: _Context) -> DependencyGraph:

@@ -16,12 +16,16 @@ unlike the reference's ``trace_measured`` nothing is rescaled.
 * :func:`measure_wallclock` — the step's time without the profiler: the
   median over calls of CUDA-event time (host clock on the CPU).
 
-``TraceBundle.export_chrome`` (which needs ``traceio``) is not ported yet.
+``trace_measured(..., save_to=path)`` also writes the kept capture as
+torch.profiler exported it, which :func:`repro_torch.traceio.load_trace_dir`
+reads back into the same graph; ``TraceBundle.export_chrome`` writes the
+simulated step as this package's native Chrome export.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gzip
 import json
 import os
 import tempfile
@@ -54,6 +58,18 @@ class TraceBundle:
 
     def simulate(self, schedule=None) -> SimResult:
         return simulate(self.graph, schedule)
+
+    def export_chrome(self, path: str,
+                      result: Optional[SimResult] = None) -> Dict[str, Any]:
+        """Export the (simulated) step timeline as Chrome trace-event JSON.
+
+        Opens in Perfetto / ``chrome://tracing``; re-importable via
+        :mod:`repro_torch.traceio` (the round-trip reproduces the simulated
+        makespan).  ``result`` defaults to a fresh :meth:`simulate`.
+        """
+        from repro_torch.traceio import export_graph_trace
+        return export_graph_trace(self.graph, result or self.simulate(),
+                                  path)
 
 
 def _sync(device: torch.device) -> None:
@@ -92,7 +108,16 @@ def measure_wallclock(fn: Callable, *args, device="cuda", iters: int = 10,
 def profile_events(fn: Callable, *args, device="cuda", **kwargs
                    ) -> List[Dict[str, Any]]:
     """The trace events of one call of ``fn`` (ending in a device sync) under
-    torch.profiler with CPU (and on CUDA, CUDA) activities and shapes.
+    torch.profiler with CPU (and on CUDA, CUDA) activities and shapes: the
+    ``traceEvents`` of :func:`profile_trace`'s document."""
+    return profile_trace(fn, *args, device=device, **kwargs)["traceEvents"]
+
+
+def profile_trace(fn: Callable, *args, device="cuda", **kwargs
+                  ) -> Dict[str, Any]:
+    """The Chrome trace document torch.profiler exports for one call of
+    ``fn`` (ending in a device sync) with CPU (and on CUDA, CUDA) activities
+    and shapes.
 
     ``with_flops`` stays off: its counts do not reach the exported trace
     (:mod:`.kineto` computes the matrix products' FLOPs from the recorded
@@ -111,7 +136,7 @@ def profile_events(fn: Callable, *args, device="cuda", **kwargs
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return json.load(f)["traceEvents"]
+            return json.load(f)
     finally:
         os.remove(path)
 
@@ -147,7 +172,8 @@ def trace_compiled(fn: Callable, *args, cost: Optional[CostModel] = None,
 
 def trace_measured(fn: Callable, *args, device="cuda",
                    cost: Optional[CostModel] = None, warmup: int = 2,
-                   profiles: int = 3, **kwargs) -> TraceBundle:
+                   profiles: int = 3, save_to: Optional[str] = None,
+                   **kwargs) -> TraceBundle:
     """Profile ``profiles`` calls of ``fn(*args, **kwargs)`` after ``warmup``
     calls, one capture each, and build the dependency graph of the capture
     with the shortest host span, with measured durations.  The simulation
@@ -155,18 +181,24 @@ def trace_measured(fn: Callable, *args, device="cuda",
     pace varies from call to call; the fastest capture is the one least
     slowed by other load.  ``cost`` (for tasks that what-ifs insert)
     defaults to the H100 SXM's data sheet on CUDA and to the reference's
-    default on the CPU."""
+    default on the CPU.  ``save_to`` (a ``*.pt.trace.json[.gz]`` path)
+    receives the kept capture's document, as torch.profiler exported it."""
     dev = resolve_device(device)
     for _ in range(warmup):
         fn(*args, **kwargs)
     _sync(dev)
-    events, spans = None, []
+    doc, spans = None, []
     for _ in range(max(1, profiles)):
-        got = profile_events(fn, *args, device=dev, **kwargs)
-        spans.append(host_span_s(got))
+        got = profile_trace(fn, *args, device=dev, **kwargs)
+        spans.append(host_span_s(got["traceEvents"]))
         if spans[-1] == min(spans):
-            events = got
+            doc = got
         del got
+    if save_to is not None:
+        with (gzip.open(save_to, "wt") if save_to.endswith(".gz")
+              else open(save_to, "w")) as f:
+            json.dump(doc, f)
+    events = doc["traceEvents"]
     graph = graph_from_events(events, device=dev.type)
     if cost is None:
         cost = CostModel(hw=H100_SXM) if dev.type == "cuda" else CostModel()

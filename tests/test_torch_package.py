@@ -1,6 +1,7 @@
-"""repro_torch as a package: it imports neither JAX nor the JAX package, its
-entry points refuse to run without CUDA unless asked for the CPU, the
-launcher runs on the CPU, and the kernel build keys, logs and reports.
+"""repro_torch as a package (``traceio`` and ``analysis`` included): it
+imports neither JAX nor the JAX package, its entry points refuse to run
+without CUDA unless asked for the CPU, the launcher runs on the CPU, and the
+kernel build keys, logs and reports.
 """
 
 import ast
@@ -46,6 +47,11 @@ def test_importing_every_module_loads_no_jax():
                 "repro_torch.kernels.fused_adam", "repro_torch.kernels.dgc_topk",
                 "repro_torch.data.pipeline", "repro_torch.runtime.fault",
                 "repro_torch.launch.train"} <= set(names), names
+        assert {f"repro_torch.traceio.{m}" for m in (
+                    "events", "align", "chrome", "importer", "synthetic", "xla",
+                    "torch_profiler")} | {f"repro_torch.analysis.{m}" for m in (
+                    "critical_path", "diff", "opportunity", "calibrate")} \
+            <= set(names), names
     """)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,

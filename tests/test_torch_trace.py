@@ -9,6 +9,15 @@ durations, gaps (the untraced host time after a launch as a task of its own),
 edges of all four kinds, layers (the backward kernel's via the autograd
 sequence number) and phases, FLOPs and bytes, and the simulated timeline.
 
+Then a hand-written capture whose launch queue fills (C6): three launches
+block on a full command buffer, each with the ``Command Buffer Full``
+overhead event CUPTI records, and the host's own time runs on after the last
+kernel.  Each blocked launch is released by the kernel that ended last
+before its wait ended and keeps only the time after the release; the graph
+still simulates to the capture's span, and halving the device now shortens
+the step (with the waits kept as host time, it did not).  Without the wait
+events the same capture builds the graph it built before.
+
 Then a real capture from the card (``tests/data/kineto_smoke_step.json.gz``,
 written by ``tests/data/capture_kineto.py``: one per-leaf AdamW training step
 of the smoke config on an H100): its graph must be acyclic, carry every
@@ -171,6 +180,113 @@ def test_route_follows_the_device_not_the_capture():
     assert all(t.thread == DEVICE_STREAM for t in g.tasks())
 
 
+# ----------------------------------------------- a launch queue that fills (C6)
+def _blocked(ts, dur, wait_from, wait_to, corr):
+    """A launch that blocked on a full command buffer: its record and the
+    overhead event CUPTI writes for the wait (Kineto's pid -1, tid 0)."""
+    return [_ev("cuda_runtime", "cudaLaunchKernel", MAIN, ts, dur, correlation=corr),
+            _ev("overhead", "Command Buffer Full", (-1, 0), wait_from,
+                wait_to - wait_from)]
+
+
+# k1..k5 run back to back from t = 4 us, 100 us each; the host launches two,
+# then each further launch waits until the kernel two back has finished (its
+# wait ends 2 us after that kernel), and after the last launch the host runs
+# 290 us of its own (untraced) until a final non-launching record
+QUEUE = [
+    _ev("cuda_runtime", "cudaLaunchKernel", MAIN, 0, 4, correlation=1),
+    _ev("cuda_runtime", "cudaLaunchKernel", MAIN, 6, 4, correlation=2),
+    *_blocked(12, 98, 14, 106, 3),      # released by k1 (ends 104)
+    *_blocked(112, 98, 114, 206, 4),    # by k2 (204)
+    *_blocked(212, 98, 214, 306, 5),    # by k3 (304)
+    _ev("cuda_runtime", "cudaFuncGetAttributes", MAIN, 600, 2, correlation=6),
+    *(_ev("kernel", f"k{i}", GPU, 4 + 100 * (i - 1), 100, correlation=i, stream=7)
+      for i in range(1, 6)),
+]
+NEVER_WAITS = [e for e in QUEUE if e.get("cat") != "overhead"]
+
+
+def _named_edges(g):
+    name = {t.uid: (t.name if t.thread == DEVICE_STREAM else f"h{t.uid}")
+            for t in g.tasks()}
+    return {(name[t.uid], name[c.uid]) for t in g.tasks() for c in g.children(t)}
+
+
+def test_waiting_launch_is_released_by_the_kernel_that_freed_the_queue():
+    g = graph_from_events(QUEUE)
+    host = g.lane_tasks(HOST_THREAD)
+    assert [t.name for t in host] == ["cudaLaunchKernel", "untraced host"] * 5 \
+        + ["cudaFuncGetAttributes"]
+    released = {(p.name, f"h{t.uid}") for t in host for p in g.parents(t)
+                if p.thread == DEVICE_STREAM}
+    assert released == {("k1", "h4"), ("k2", "h6"), ("k3", "h8")}
+    assert {("k1", "h4"), ("h0", "k1"), ("h8", "k5")} <= _named_edges(g)
+    g.toposort()
+
+
+def test_waiting_launch_keeps_only_its_own_issue_time():
+    g = graph_from_events(QUEUE)
+    us = [round(t.duration * 1e6, 9) for t in g.lane_tasks(HOST_THREAD)]
+    # each blocked launch: its end (110, 210, 310) less its release (104, 204, 304)
+    assert us == [4, 2, 4, 2, 6, 2, 6, 2, 6, 290, 2]
+
+
+def test_queue_capture_simulates_to_its_span():
+    res = simulate(graph_from_events(QUEUE))
+    assert res.makespan == pytest.approx(602e-6, abs=1e-12)
+
+
+def test_halving_the_device_now_shortens_the_step():
+    """With the waits on device -> host edges, the host is released when the
+    halved kernels finish: 452 us (k3 ends at 154, the last launch at 160,
+    then the host's own 290 + 2 us).  With the waits kept as host time (the
+    graph without the wait events) the host lane still takes 602 us."""
+    def halved(events):
+        g = graph_from_events(events)
+        for t in g.lane_tasks(DEVICE_STREAM):
+            t.duration /= 2
+        return simulate(g).makespan
+    assert halved(QUEUE) == pytest.approx(452e-6, abs=1e-12)
+    assert halved(NEVER_WAITS) == pytest.approx(602e-6, abs=1e-12)
+
+
+def test_capture_that_never_waits_builds_todays_graph():
+    """No wait event: every record keeps its whole duration, the only
+    device -> host edges are synchronising calls' (none here), and the
+    hand-written capture above (no wait either) is pinned exactly by the
+    tests before these."""
+    g = graph_from_events(NEVER_WAITS)
+    us = [round(t.duration * 1e6, 9) for t in g.lane_tasks(HOST_THREAD)]
+    assert us == [4, 2, 4, 2, 98, 2, 98, 2, 98, 290, 2]
+    assert not any(p.thread == DEVICE_STREAM for t in g.lane_tasks(HOST_THREAD)
+                   for p in g.parents(t))
+    assert simulate(g).makespan == pytest.approx(602e-6, abs=1e-12)
+
+
+def test_wait_in_untraced_time_moves_to_an_edge_too():
+    """A wait that ends between two records is charged to the untraced host
+    task there (after a non-launching record, that time becomes a task of
+    its own for it)."""
+    events = [
+        _ev("cuda_runtime", "cudaLaunchKernel", MAIN, 0, 4, correlation=1),
+        _ev("cuda_runtime", "cudaFuncGetAttributes", MAIN, 6, 2, correlation=2),
+        _ev("overhead", "Command Buffer Full", (-1, 0), 10, 95),
+        _ev("cuda_runtime", "cudaLaunchKernel", MAIN, 110, 4, correlation=3),
+        _ev("kernel", "k1", GPU, 4, 100, correlation=1, stream=7),
+        _ev("kernel", "k3", GPU, 114, 10, correlation=3, stream=7),
+    ]
+    g = graph_from_events(events)
+    host = g.lane_tasks(HOST_THREAD)
+    assert [(t.name, round(t.duration * 1e6, 9), round(t.gap * 1e6, 9))
+            for t in host] == [("cudaLaunchKernel", 4, 0), ("untraced host", 2, 0),
+                               ("cudaFuncGetAttributes", 2, 0),
+                               # 110 less the release (k1 ends at 104)
+                               ("untraced host", 6, 0), ("cudaLaunchKernel", 4, 0)]
+    k1 = next(t for t in g.tasks() if t.name == "k1")
+    assert host[3] in g.children(k1)
+    assert simulate(g).makespan == pytest.approx(124e-6, abs=1e-12)
+
+
 # ------------------------------------------------------ a capture from the card
 @pytest.fixture(scope="module")
 def card_capture():
@@ -193,6 +309,15 @@ def test_card_capture_graph(card_capture):
     assert {t.layer for t in dev if t.phase == "update"} == {"update"}
     assert {"attn", "mlp", "norm", "loss", "embed"} <= {t.layer for t in dev
                                                         if t.phase == "bwd"}
+
+
+def test_card_capture_never_waited(card_capture):
+    """The smoke step's host never filled the launch queue: no wait event,
+    and no host task but a synchronising call has a device parent."""
+    events, g = card_capture
+    assert not any(e.get("name") == "Command Buffer Full" for e in events)
+    assert all(t.kind == TaskKind.SYNC for t in g.lane_tasks(HOST_THREAD)
+               if any(p.thread == DEVICE_STREAM for p in g.parents(t)))
 
 
 def test_card_capture_simulates_to_its_span(card_capture):
