@@ -69,9 +69,23 @@
    capture itself (a faithful replay, loss 0) and the H100 cost model's
    constants fitted to it, with the analytical bfloat16 step priced before
    and after;
-9. the card's name and power limit again (the limit the run ended under),
-   the ``whatif``, ``amp``, ``traceio`` and ``kernels`` JSON lines, then the
-   last line ``{"ok": true, "device": {...}}``.
+9. serving: the serving simulator (``repro_torch.serving``) fitted to the
+   engine and checked against it at full width, last, so that no profiled
+   phase follows its launches.  ``measure_serving_costs`` of llama3.2-1b
+   once, and of tinyllama-1.1b in each of ``SERVING_ROUNDS`` rounds, at 4
+   requests x 512 prompt tokens (every constant finite and > 0; the ratio
+   to the committed ``SERVING_COSTS`` printed).  Each round's tinyllama fit
+   predicts that round's runs: the static drain of 4 x (256 prompt, 64 new
+   tokens), another shape than the fit's, against the mean of the
+   ``generate`` before and after the fit (median error within 10%), and
+   ``static_slots:slots=8`` on 8 x (512, 64) from a baseline of two static
+   batches of 4, against the ``generate`` of 8 that follows the fit (median
+   error within 16%; both speedups above 1, the baseline measured in every
+   third round); the serve phase's mixed prompts predicted and measured
+   (printed); launch counts read around the whole phase, exact;
+10. the card's name and power limit again (the limit the run ended under),
+   the ``whatif``, ``amp``, ``traceio``, ``serving`` and ``kernels`` JSON
+   lines, then the last line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 without the repository's ``src`` beside this file, it fails at once.
@@ -95,7 +109,7 @@ import torch.nn.functional as F
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import SERVING_COSTS, get_config, serving_cost  # noqa: E402
 from repro_torch.analysis import rank_opportunities  # noqa: E402
 from repro_torch.core import (DEVICE_STREAM, H100_SXM, HOST_THREAD,  # noqa: E402
                               ClusterGraph, CostModel, GraphTransform,
@@ -112,6 +126,10 @@ from repro_torch.models import (build_model, init_cache,  # noqa: E402
                                 init_params, loss_and_grads, make_train_step)
 from repro_torch.optim import AdamW, opt_state  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
+from repro_torch.serve import engine as serve_engine  # noqa: E402
+from repro_torch.serving import (ServingPolicy, ServingScenario,  # noqa: E402
+                                 explicit_workload)
+from repro_torch.serving.measure import measure_serving_costs  # noqa: E402
 from repro_torch.traceio import load_trace_dir  # noqa: E402
 from repro_torch.train import Trainer, TrainerConfig  # noqa: E402
 
@@ -155,6 +173,19 @@ DGC_RATIO = 0.01
 ARCH = "tinyllama-1.1b"
 PT_TRACE = "step.pt.trace.json.gz"   # a capture as torch.profiler exports it
 ROUNDTRIP_TOL = 1e-6                 # tests/golden/trace_roundtrip.json's bound
+# serving phase: the cost model fitted at the serve shape (4 x 512 prompt
+# tokens, the serve phase's batch without its padding) for ARCH and for the
+# registry's other dense arch that fits the card; the fidelity workload, at
+# another shape than the fit's, and the what-if's
+FIT_ONLY_ARCH = "llama3.2-1b"
+FIT_BATCH, FIT_PROMPT, FIT_MAX_SEQ = 4, 512, 576
+FIDELITY_PROMPT, FIDELITY_NEW = 256, 64
+WHATIF_NEW = 64                      # new tokens per request
+WHATIF_REQUESTS, WHATIF_SLOTS = 8, 8 # one static batch of 8 against two of 4
+# The engine is host-bound, and the host's pace on the card's machine drifts
+# by 10-20% over seconds (PERF.md, serving): each round's fit predicts the
+# runs next to it, and the gates read the median of 11 rounds' errors
+SERVING_ROUNDS = 11
 
 
 def fail(msg: str) -> None:
@@ -624,6 +655,246 @@ def serve_phase(cfg, kernels: list) -> int:
     if not ok:
         fail("served tokens or decode logits disagree with prefill")
     return n_params
+
+
+def serving_phase() -> dict:
+    """The serving simulator against the port's engine at full width.
+
+    llama3.2-1b: ``measure_serving_costs`` at 4 x 512 (fit only).
+    tinyllama-1.1b, in each of ``SERVING_ROUNDS`` rounds: a ``generate`` of
+    4 x (256, 64) on the phase's engine, ``measure_serving_costs`` at 4 x 512
+    (on its own engine), a ``generate`` of 8 x (512, 64) (the what-if,
+    ``static_slots:slots=8``), the ``generate`` of 4 x (256, 64) again, and
+    in every third round two back-to-back ``generate``s of 4 x (512, 64)
+    (the baseline, two static batches).  The engine is host-bound and the
+    host's pace drifts over seconds, so each round's fit predicts the runs
+    next to it, and the gates read the median of the rounds' errors.
+    Gates: every constant finite and > 0; fidelity, the static drain of
+    4 x (256, 64) against the mean of the round's two runs, within 10%; the
+    what-if against the round's ``generate`` of 8 within 16%, both speedups
+    > 1; launch counts exact over every prefill and decode step of every
+    engine the phase builds (per prefill one flash per layer, all on the
+    tensor-core kernel, and per forward two RMSNorm per layer and the final
+    one).  Printed: the median constants and their ratio to the committed
+    ``SERVING_COSTS``, TTFT, the error without C8's extra decode step, the
+    baseline's error, and the serve phase's mixed prompts.  Returns the
+    ``serving`` JSON object."""
+    t0 = time.perf_counter()
+    # forward passes of every engine the phase builds, by config
+    calls = {}
+
+    def counted(kind, make):
+        def make_counted(cfg):
+            step, n = make(cfg), calls.setdefault(cfg.name, {"prefill": 0, "decode": 0})
+
+            def run(*args):
+                n[kind] += 1
+                return step(*args)
+            return run
+        return make_counted
+
+    made = serve_engine.make_prefill_step, serve_engine.make_serve_step
+    serve_engine.make_prefill_step = counted("prefill", made[0])
+    serve_engine.make_serve_step = counted("decode", made[1])
+    ops.reset_launch_counts()
+    try:
+        out = _serving_rounds()
+    finally:
+        serve_engine.make_prefill_step, serve_engine.make_serve_step = made
+    counts = ops.launch_counts()
+    by_variant = dict(flash_kernel.launches_by_variant)
+    want = {"flash_attention": 0, "rmsnorm": 0, "fused_adam": 0, "dgc_mask": 0}
+    for arch in (FIT_ONLY_ARCH, ARCH):
+        layers, n = get_config(arch).n_layers, calls[get_config(arch).name]
+        want["flash_attention"] += layers * n["prefill"]
+        want["rmsnorm"] += (2 * layers + 1) * (n["prefill"] + n["decode"])
+    want_variant = {"wgmma": want["flash_attention"], "scalar": 0}
+    print(f"serving: launches over the phase's forward passes {calls}: {counts}, "
+          f"flash by kernel {by_variant}; expected {want}, {want_variant} (one "
+          f"flash per layer per prefill, all on the tensor-core kernel, two "
+          f"rmsnorm per layer and the final one per forward)")
+    if counts != want or by_variant != want_variant:
+        fail(f"serving launch counts {counts} {by_variant} != {want} {want_variant}")
+    out.update(forward_passes=calls, launches=counts, launches_by_variant=by_variant,
+               phase_s=time.perf_counter() - t0)
+    return out
+
+
+def _serving_fit(arch: str) -> dict:
+    """The constants ``measure_serving_costs`` fits for ``arch`` at the fit
+    shape (gated finite and > 0) and the step times they imply."""
+    model, consts = measure_serving_costs(arch, prompt_tokens=FIT_PROMPT,
+                                          batch=FIT_BATCH, max_seq=FIT_MAX_SEQ,
+                                          device=DEV)
+    if not all(math.isfinite(v) and v > 0 for v in consts.values()):
+        fail(f"serving constants of {arch} not finite and > 0: {consts}")
+    return {"constants": consts,
+            "prefill_ms": FIT_BATCH * model.prefill_time(FIT_PROMPT) * 1e3,
+            "decode_ms": model.decode_step_time(FIT_BATCH, FIT_BATCH * FIT_PROMPT) * 1e3}
+
+
+def _print_fit(arch: str, fit: dict, how: str) -> None:
+    committed = SERVING_COSTS.get(arch, {})
+    fit["ratio_to_committed"] = {k: fit["constants"][k] / committed[k]
+                                 for k in committed} or None
+    c = ", ".join(f"{k!r}: {v:.6g}" for k, v in fit["constants"].items())
+    print(f"serving: {arch} fitted at batch {FIT_BATCH} x {FIT_PROMPT} prompt tokens "
+          f"({how}): prefill {fit['prefill_ms']:.3f} ms, decode step "
+          f"{fit['decode_ms']:.3f} ms; reuse with .with_constants({{{c}}}); ratio to "
+          f"SERVING_COSTS " + (", ".join(f"{k} {v:.4f}" for k, v in
+                                         (fit["ratio_to_committed"] or {}).items())
+                               or "(none committed)"))
+
+
+def _serving_predictions(consts: dict) -> dict:
+    """What the tinyllama model with ``consts`` predicts for the phase's
+    workloads, in seconds."""
+    model = serving_cost(ARCH, fitted=False).with_constants(consts)
+
+    def static(specs, slots):
+        return ServingScenario(workload=explicit_workload(specs),
+                               policy=ServingPolicy(mode="static", slots=slots),
+                               serving_cost=model)
+
+    fid = static([(0.0, FIDELITY_PROMPT, FIDELITY_NEW)] * FIT_BATCH, FIT_BATCH)
+    what = static([(0.0, FIT_PROMPT, WHATIF_NEW)] * WHATIF_REQUESTS, FIT_BATCH)
+    pred = what.predict(f"static_slots:slots={WHATIF_SLOTS}")
+    return {"fidelity": fid.baseline().makespan,
+            # the decode step the engine does not run (C8)
+            "c8_step": model.decode_step_time(
+                FIT_BATCH, FIT_BATCH * (FIDELITY_PROMPT + FIDELITY_NEW)),
+            "ttft": fid.predict("noop").ttft_p50,
+            "baseline": what.baseline().makespan, "whatif": pred.predicted,
+            "speedup": pred.speedup,
+            "mixed": static([(0.0, n, NEW_TOKENS) for n in PROMPT_LENS],
+                            len(PROMPT_LENS)).baseline().makespan}
+
+
+def _serving_rounds() -> dict:
+    """The fits, the fidelity and what-if runs and their predictions, for
+    ``serving_phase``."""
+    fits = {FIT_ONLY_ARCH: _serving_fit(FIT_ONLY_ARCH)}
+    _print_fit(FIT_ONLY_ARCH, fits[FIT_ONLY_ARCH], "measure_serving_costs, once")
+
+    cfg = get_config(ARCH)
+    engine = ServeEngine(cfg, init_params(cfg, seed=0, device=DEV),
+                         max_seq=FIT_MAX_SEQ, device=DEV)
+    rng = np.random.default_rng(1)
+
+    def requests(lens, new):
+        return [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab, n)],
+                        max_new_tokens=new) for n in lens]
+
+    fid_reqs = requests([FIDELITY_PROMPT] * FIT_BATCH, FIDELITY_NEW)
+    what_reqs = requests([FIT_PROMPT] * WHATIF_REQUESTS, WHATIF_NEW)
+    mixed_reqs = requests(PROMPT_LENS, NEW_TOKENS)
+    # set-up: the first call of each batch shape loads its GEMMs
+    for batch in (fid_reqs, what_reqs[:FIT_BATCH], what_reqs):
+        engine.generate([Request(r.prompt, 2) for r in batch])
+
+    def served(batch) -> dict:
+        engine.generate(batch)
+        return engine.stats
+
+    # each round: fidelity, the fit, the what-if, fidelity again (the fit
+    # next to the runs whose predictions it is held to), and in every third
+    # round the baseline (its speedup over the what-if is far from 1)
+    rounds = []
+    half = WHATIF_REQUESTS // 2
+    total = lambda st: st["prefill_s"] + st["decode_s"]     # noqa: E731
+    for i in range(SERVING_ROUNDS):
+        fid = [served(fid_reqs)]
+        r = _serving_fit(ARCH)
+        r["whatif_s"] = total(served(what_reqs))
+        fid.append(served(fid_reqs))
+        if i % 3 == 0:
+            r["baseline_s"] = sum(total(served(b))
+                                  for b in (what_reqs[:half], what_reqs[half:]))
+        r.update(fidelity_s=float(np.mean([total(st) for st in fid])),
+                 fidelity_prefill_s=float(np.mean([st["prefill_s"] for st in fid])),
+                 predicted=_serving_predictions(r["constants"]))
+        rounds.append(r)
+    mixed = served(mixed_reqs)
+
+    med = lambda xs: float(np.median(xs))          # noqa: E731
+    consts = {k: med([r["constants"][k] for r in rounds]) for k in rounds[0]["constants"]}
+    model = serving_cost(ARCH, fitted=False).with_constants(consts)
+    fits[ARCH] = {"constants": consts,
+                  "prefill_ms": FIT_BATCH * model.prefill_time(FIT_PROMPT) * 1e3,
+                  "decode_ms": model.decode_step_time(FIT_BATCH, FIT_BATCH * FIT_PROMPT) * 1e3}
+    _print_fit(ARCH, fits[ARCH], f"measure_serving_costs in each of {SERVING_ROUNDS} "
+               f"rounds, the median of each constant; per round prefill/decode "
+               + ", ".join(f"{r['prefill_ms']:.2f}/{r['decode_ms']:.2f}" for r in rounds)
+               + " ms")
+
+    def errors(pred, meas):
+        return [r["predicted"][pred] / r[meas] - 1 for r in rounds if meas in r]
+
+    fid_errs = errors("fidelity", "fidelity_s")
+    fid_err = med(fid_errs)
+    fid_err_c8 = med([(r["predicted"]["fidelity"] - r["predicted"]["c8_step"])
+                      / r["fidelity_s"] - 1 for r in rounds])
+    ttft_pred = med([r["predicted"]["ttft"] for r in rounds])
+    ttft_meas = med([r["fidelity_prefill_s"] for r in rounds])
+    print(f"serving: fidelity, {FIT_BATCH} x ({FIDELITY_PROMPT}, {FIDELITY_NEW}) static, "
+          f"each round's fit against the mean of the generates before and after it "
+          f"(prefill_s + decode_s): predicted/measured ms "
+          + ", ".join(f"{r['predicted']['fidelity'] * 1e3:.1f}/{r['fidelity_s'] * 1e3:.1f}"
+                      for r in rounds)
+          + f"; median error {fid_err:+.2%} (limit {FIDELITY_TOL:.0%}); without the "
+          f"decode step the engine does not run (C8) {fid_err_c8:+.2%}; TTFT predicted "
+          f"{ttft_pred * 1e3:.3f} ms (the prefills and one decode step) against the "
+          f"measured prefill {ttft_meas * 1e3:.3f} ms (medians)")
+    if not abs(fid_err) <= FIDELITY_TOL:
+        fail(f"serving fidelity {fid_err:+.2%} outside {FIDELITY_TOL:.0%}")
+
+    spec = f"static_slots:slots={WHATIF_SLOTS}"
+    err, base_err = med(errors("whatif", "whatif_s")), med(errors("baseline", "baseline_s"))
+    pred_speedup = med([r["predicted"]["speedup"] for r in rounds])
+    based = [r for r in rounds if "baseline_s" in r]
+    meas_speedup = med([r["baseline_s"] for r in based]) / med([r["whatif_s"] for r in rounds])
+    print(f"serving: what-if {spec} on {WHATIF_REQUESTS} x ({FIT_PROMPT}, {WHATIF_NEW}), "
+          f"each round's fit against its runs: baseline (two static batches of "
+          f"{FIT_BATCH}) predicted/measured ms "
+          + ", ".join(f"{r['predicted']['baseline'] * 1e3:.1f}/{r['baseline_s'] * 1e3:.1f}"
+                      for r in based)
+          + f", median error {base_err:+.2%}; what-if (one generate of "
+          f"{WHATIF_REQUESTS}) "
+          + ", ".join(f"{r['predicted']['whatif'] * 1e3:.1f}/{r['whatif_s'] * 1e3:.1f}"
+                      for r in rounds)
+          + f"; speedup predicted {pred_speedup:.4f}x, measured {meas_speedup:.4f}x "
+          f"(medians); median prediction error {err:+.2%} (limit {PREDICT_TOL:.0%})")
+    if not (pred_speedup > 1 and meas_speedup > 1 and abs(err) <= PREDICT_TOL):
+        fail(f"{spec} what-if: speedups {pred_speedup} / {meas_speedup}, "
+             f"error {err:+.2%} (limit {PREDICT_TOL:.0%})")
+
+    mixed_s = total(mixed)
+    mix_pred = _serving_predictions(consts)["mixed"]
+    mix_err = mix_pred / mixed_s - 1
+    print(f"serving: the serve phase's prompts {PROMPT_LENS} x {NEW_TOKENS} tokens "
+          f"(printed, not gated): predicted {mix_pred * 1e3:.3f} ms with the median "
+          f"constants, each prompt priced at its length; measured {mixed_s * 1e3:.3f} "
+          f"ms, the engine pads to {max(PROMPT_LENS)}: {mix_err:+.2%}")
+    ms = lambda xs: [x * 1e3 for x in xs]     # noqa: E731
+    return {"fits": fits,
+            "fidelity": {"shape": [FIT_BATCH, FIDELITY_PROMPT, FIDELITY_NEW],
+                         "error": fid_err, "error_without_c8_step": fid_err_c8,
+                         "errors": fid_errs,
+                         "predicted_ms": ms(r["predicted"]["fidelity"] for r in rounds),
+                         "measured_ms": ms(r["fidelity_s"] for r in rounds),
+                         "ttft_predicted_ms": ttft_pred * 1e3,
+                         "prefill_measured_ms": ttft_meas * 1e3},
+            "whatif": {"spec": spec, "error": err, "baseline_error": base_err,
+                       "speedup_predicted": pred_speedup,
+                       "speedup_measured": meas_speedup,
+                       "baseline_predicted_ms": ms(r["predicted"]["baseline"] for r in based),
+                       "baseline_measured_ms": ms(r["baseline_s"] for r in based),
+                       "predicted_ms": ms(r["predicted"]["whatif"] for r in rounds),
+                       "measured_ms": ms(r["whatif_s"] for r in rounds)},
+            "mixed": {"prompts": PROMPT_LENS, "predicted_ms": mix_pred * 1e3,
+                      "measured_ms": mixed_s * 1e3, "error": mix_err},
+            "rounds": [{k: r[k] for k in ("constants", "prefill_ms", "decode_ms")}
+                       for r in rounds]}
 
 
 def _batches(cfg, seq: int, batch: int, start: int = 0):
@@ -1422,9 +1693,11 @@ def main() -> None:
         amp = amp_phase(cfg, name, kernels, traces, handoff)
         traceio = traceio_phase(name, traces, handoff)
         del handoff
+    serving = serving_phase()   # last: no profiled phase follows its launches
     for kern in kernels:    # the count from this slice's main path, or its own
         paths = kern["launches_by_path"]
-        kern["launches"] = paths.get("amp") or paths.get("dgc", 0)
+        paths["serving"] = serving["launches"][kern["name"]]
+        kern["launches"] = paths["serving"] or paths.get("amp") or paths.get("dgc", 0)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms", "shape",
             "launches_by_path", "launches_per_train_step"]
@@ -1435,6 +1708,7 @@ def main() -> None:
     print(json.dumps({"whatif": whatif}))
     print(json.dumps({"amp": amp}))
     print(json.dumps({"traceio": traceio}))
+    print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,0 +1,27 @@
+"""llama3.2-1b — Llama-3.2 1B dense (tied embeddings).
+
+[hf:meta-llama/Llama-3.2-1B; unverified]  16L d_model=2048 32H (GQA kv=8)
+d_ff=8192 vocab=128256.  Same numbers as ``repro/configs/llama3_2_1b.py``.
+"""
+
+from repro_torch.models.model import ModelConfig
+
+CONFIG = ModelConfig(
+    name="llama3.2-1b",
+    family="dense",
+    n_layers=16,
+    d_model=2048,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=8192,
+    vocab=128256,
+    head_dim=64,
+    tie_embeddings=True,
+    rope_theta=500000.0,
+    layout="dp",
+    serve_fsdp=False,
+)
+
+SMOKE = CONFIG.with_(
+    n_layers=2, d_model=64, n_heads=4, n_kv_heads=2, d_ff=128, vocab=512,
+    head_dim=16)

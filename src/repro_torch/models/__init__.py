@@ -1,9 +1,11 @@
 """Dense decoder model in PyTorch (counterpart of ``repro.models``)."""
 
-from .model import (Model, ModelConfig, build_model, decode_fn, init_cache,
-                    init_params, loss_and_grads, loss_fn, make_prefill_step,
+from .model import (Model, ModelConfig, active_params, build_model,
+                    count_params, decode_fn, init_cache, init_params,
+                    loss_and_grads, loss_fn, make_prefill_step,
                     make_serve_step, make_train_step, prefill_fn)
 
-__all__ = ["Model", "ModelConfig", "build_model", "decode_fn", "init_cache",
-           "init_params", "loss_and_grads", "loss_fn", "make_prefill_step",
+__all__ = ["Model", "ModelConfig", "active_params", "build_model",
+           "count_params", "decode_fn", "init_cache", "init_params",
+           "loss_and_grads", "loss_fn", "make_prefill_step",
            "make_serve_step", "make_train_step", "prefill_fn"]

@@ -8,6 +8,7 @@ for the dense family:
     prefill_fn(cfg, params, batch)          -> (last-token logits, caches)
     decode_fn(cfg, params, caches, tok, pos)-> (logits, caches)   (one token)
     init_cache(cfg, batch, max_seq, device) -> zeroed per-layer KV caches
+    count_params(cfg), active_params(cfg)   -> parameter counts (meta, no memory)
 
 Params are the reference's tree with ``blocks`` a list of per-layer dicts
 (the reference stacks them on a leading axis).  Caches are a list of
@@ -128,6 +129,23 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                               scale=0.02)}
     p["blocks"] = [T.dense_block_init(cfg, gen, dt) for _ in range(cfg.n_layers)]
     return p
+
+
+# -------------------------------------------------------------- accounting
+def count_params(cfg: ModelConfig) -> int:
+    """Total parameters, counted from ``init_params(cfg, device="meta")``:
+    shapes only, nothing allocated (llama3-405b has ~4e11)."""
+    return sum(t.numel() for t in tree_flatten(init_params(cfg, device="meta"))[0])
+
+
+def active_params(cfg: ModelConfig) -> int:
+    """Per-token active parameters (for MODEL_FLOPS = 6 * N_active * D)."""
+    total = count_params(cfg)
+    if cfg.n_experts and cfg.top_k:
+        per_expert = 3 * cfg.d_model * cfg.d_ff_expert
+        inactive = (cfg.n_experts - cfg.top_k) * per_expert * cfg.n_layers
+        total -= inactive
+    return total
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device

@@ -56,6 +56,17 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _grow_cache(self, prefix: List[Dict[str, torch.Tensor]], plen: int
+                    ) -> List[Dict[str, torch.Tensor]]:
+        """The prefill's per-layer K/V (``plen`` positions) written into a
+        zeroed cache of ``max_seq`` positions."""
+        cache = init_cache(self.cfg, prefix[0]["k"].shape[0], self.max_seq,
+                           self.device)
+        for layer, pre in zip(cache, prefix):
+            layer["k"][:, :plen] = pre["k"]
+            layer["v"][:, :plen] = pre["v"]
+        return cache
+
     @torch.inference_mode()
     def generate(self, requests: List[Request]) -> List[Result]:
         B = len(requests)
@@ -69,10 +80,7 @@ class ServeEngine:
         t0 = time.perf_counter()
         nxt, prefix = self._prefill(
             self.params, {"tokens": torch.from_numpy(toks).to(self.device)})
-        cache = init_cache(self.cfg, B, self.max_seq, self.device)
-        for layer, pre in zip(cache, prefix):
-            layer["k"][:, :plen] = pre["k"]
-            layer["v"][:, :plen] = pre["v"]
+        cache = self._grow_cache(prefix, plen)
         del prefix
         self._sync()
         t1 = time.perf_counter()

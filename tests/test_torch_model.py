@@ -22,10 +22,12 @@ import repro.configs as jax_configs  # noqa: E402
 from repro.models import attention as jax_attention  # noqa: E402
 from repro.models import build_model as jax_build_model  # noqa: E402
 from repro.models import layers as jax_layers  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro.models import model as jax_model  # noqa: E402
+from repro_torch import configs as port_configs  # noqa: E402
+from repro_torch.configs import ARCHS, get_config, get_smoke_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
-from repro_torch.models import (build_model, init_cache,  # noqa: E402
-                                init_params)
+from repro_torch.models import (active_params, build_model,  # noqa: E402
+                                count_params, init_cache, init_params)
 from repro_torch.models import attention, layers  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 
@@ -56,16 +58,46 @@ def _tokens(cfg, B, S, seed=0):
 
 
 # ----------------------------------------------------------------- configs
+@pytest.mark.parametrize("arch", ARCHS)
 @pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
-def test_configs_match_reference(getter):
+def test_configs_match_reference(getter, arch):
     port = {"get_config": get_config, "get_smoke_config": get_smoke_config}[getter]
-    assert dataclasses.asdict(port(ARCH)) == dataclasses.asdict(
-        getattr(jax_configs, getter)(ARCH))
+    assert dataclasses.asdict(port(arch)) == dataclasses.asdict(
+        getattr(jax_configs, getter)(arch))
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("getter", ["get_config", "get_smoke_config"])
+def test_param_counts_match_reference(getter, arch):
+    """``count_params``/``active_params`` from meta tensors equal the
+    reference's from its spec-mode init (tied llama3.2-1b has no unembed)."""
+    port_cfg = getattr(port_configs, getter)(arch)
+    ref_cfg = getattr(jax_configs, getter)(arch)
+    assert count_params(port_cfg) == jax_model.count_params(ref_cfg)
+    assert active_params(port_cfg) == jax_model.active_params(ref_cfg)
+
+
+def test_param_count_of_tinyllama_is_the_pool_s():
+    assert count_params(get_config(ARCH)) == 1_100_048_384
+
+
+def test_registry_matches_reference_for_ported_archs():
+    assert port_configs.list_archs() == ARCHS
+    assert set(ARCHS) <= set(jax_configs.list_archs())
+    assert {k: dataclasses.astuple(v) for k, v in port_configs.SHAPES.items()} == \
+        {k: dataclasses.astuple(v) for k, v in jax_configs.SHAPES.items()}
+    for arch in ARCHS:
+        for shape in port_configs.SHAPES:
+            assert port_configs.runnable(arch, shape) == \
+                jax_configs.runnable(arch, shape)
+    for skipped in (False, True):
+        assert sorted(port_configs.cells(skipped)) == sorted(
+            c for c in jax_configs.cells(skipped) if c[0] in ARCHS)
 
 
 def test_unported_arch_family_and_options_raise():
     with pytest.raises(NotImplementedError):
-        get_config("llama3.2-1b")
+        get_config("mamba2-2.7b")
     cfg = get_smoke_config(ARCH)
     with pytest.raises(NotImplementedError):
         build_model(cfg.with_(family="moe"))
@@ -287,6 +319,49 @@ def test_engine_greedy_tokens_match_reference_prefill_recompute(smoke):
         toks = np.concatenate([toks, nxt], axis=1)
     want = np.concatenate(want, axis=1)
     assert [r.tokens for r in got] == want.tolist()
+
+
+@pytest.fixture(scope="module")
+def llama_smoke():
+    """llama3.2-1b's smoke config (tied embeddings) in float32, as ``smoke``."""
+    arch = "llama3.2-1b"
+    jcfg = jax_configs.get_smoke_config(arch).with_(dtype="float32")
+    jmodel = jax_build_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    cfg = get_smoke_config(arch).with_(dtype="float32")
+    params = params_from_jax(cfg, jax.device_get(jparams), device="cpu")
+    return jmodel, jparams, cfg, params
+
+
+def test_tied_llama_prefill_and_decode_match_reference(llama_smoke):
+    """llama3.2-1b smoke: prefill logits and caches, then one decode step on
+    the grown cache, against the JAX model (the unembedding is the
+    embedding table)."""
+    jmodel, jparams, cfg, params = llama_smoke
+    assert "unembed" not in params and "unembed" not in jparams
+    S = 12
+    toks = _tokens(cfg, 2, S + 1, seed=3)
+    jlogits, jcache = jax.jit(jmodel.prefill)(jparams, {"tokens": jnp.asarray(toks[:, :S])})
+    model = build_model(cfg)
+    t = torch.from_numpy(toks).long()
+    logits, prefix = model.prefill(params, {"tokens": t[:, :S]})
+    _close(logits, jlogits)
+    for i, layer in enumerate(prefix):
+        _close(layer["k"], jcache["k"][i])
+        _close(layer["v"], jcache["v"][i])
+
+    jcache = jax.tree.map(lambda a: jnp.pad(a, [(0, 0), (0, 0), (0, 1), (0, 0),
+                                                (0, 0)]), jcache)
+    jlogits, jcache = jax.jit(jmodel.decode)(
+        jparams, jcache, jnp.asarray(toks[:, S:]), jnp.asarray(S, jnp.int32))
+    cache = init_cache(cfg, 2, S + 1, "cpu")
+    for layer, pre in zip(cache, prefix):
+        layer["k"][:, :S], layer["v"][:, :S] = pre["k"], pre["v"]
+    logits, cache = model.decode(params, cache, t[:, S:], S)
+    _close(logits, jlogits)
+    for i, layer in enumerate(cache):
+        _close(layer["k"], jcache["k"][i])
+        _close(layer["v"], jcache["v"][i])
 
 
 def test_engine_rejects_prompt_that_fills_the_cache(smoke):

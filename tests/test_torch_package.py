@@ -1,7 +1,7 @@
-"""repro_torch as a package (``traceio`` and ``analysis`` included): it
-imports neither JAX nor the JAX package, its entry points refuse to run
-without CUDA unless asked for the CPU, the launcher runs on the CPU, and the
-kernel build keys, logs and reports.
+"""repro_torch as a package (``traceio``, ``analysis`` and ``serving``
+included): it imports neither JAX nor the JAX package, its entry points
+refuse to run without CUDA unless asked for the CPU, the launcher runs on
+the CPU, and the kernel build keys, logs and reports.
 """
 
 import ast
@@ -52,6 +52,11 @@ def test_importing_every_module_loads_no_jax():
                     "torch_profiler")} | {f"repro_torch.analysis.{m}" for m in (
                     "critical_path", "diff", "opportunity", "calibrate")} \
             <= set(names), names
+        assert {f"repro_torch.serving.{m}" for m in (
+                    "workload", "costs", "graphgen", "scenario", "measure")} | {
+                "repro_torch.serving", "repro_torch.configs.serving",
+                "repro_torch.configs.llama3_2_1b", "repro_torch.configs.llama3_405b",
+                "repro_torch.launch.serve_sim"} <= set(names), names
     """)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
