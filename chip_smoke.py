@@ -69,7 +69,32 @@
    capture itself (a faithful replay, loss 0) and the H100 cost model's
    constants fitted to it, with the analytical bfloat16 step priced before
    and after;
-9. serving: the serving simulator (``repro_torch.serving``) fitted to the
+9. faults: checkpoint/restart and the goodput simulator
+   (``repro_torch.{ckpt,runtime,faults}``), checkpoints in a temporary
+   directory (its filesystem and free bytes printed).  At full width and
+   depth, bf16, fused AdamW: ``Trainer.fit`` of 3 steps with one
+   synchronous save (``checkpoint_bytes`` equal to the ``.npy`` payloads,
+   12 B per parameter + 12), one ``save_async`` (blocking part and wait),
+   a restore into a fresh trainer (``restore_or_init``, ``like`` on meta
+   tensors), bit-equal with flat-backed moments, and its next step against
+   two live ones (bit-equal where the step is deterministic, else within
+   their spread; launches exact).  The checkpoint cost fitted (least
+   squares, latency >= 0) to the saves as a run makes them (a write, then
+   the oldest checkpoint deleted) and the restores, at full depth and at 4
+   layers (3 of each there), printed beside ``H100_SXM``'s default.  Then a drill at 4 layers,
+   predicted first: the step traced (``trace_measured``), a
+   ``FaultScenario`` with the fitted cost, no detection, repair or restart
+   time, and one fail-stop where the drill injects it; the wall time at
+   which the committed steps reach 16, for the baseline (a save every 4
+   steps) and ``ckpt_interval:steps=2``.  Then ``FaultTolerantRunner``
+   runs each drill (16 steps on ``SyntheticLM.batch_at(i)``, one failure
+   before step 10, restores through ``CheckpointManager``), and once
+   without a failure: one restart each, launches exact per executed step,
+   final states equal to the uninterrupted one, the baseline within 10%
+   and the what-if within 16% of their measured wall times (medians of 3
+   rounds); last
+   ``python -m repro_torch.launch.goodput`` on the drill step's capture;
+10. serving: the serving simulator (``repro_torch.serving``) fitted to the
    engine and checked against it at full width, last, so that no profiled
    phase follows its launches.  ``measure_serving_costs`` of llama3.2-1b
    once, and of tinyllama-1.1b in each of ``SERVING_ROUNDS`` rounds, at 4
@@ -83,9 +108,10 @@
    error within 16%; both speedups above 1, the baseline measured in every
    third round); the serve phase's mixed prompts predicted and measured
    (printed); launch counts read around the whole phase, exact;
-10. the card's name and power limit again (the limit the run ended under),
-   the ``whatif``, ``amp``, ``traceio``, ``serving`` and ``kernels`` JSON
-   lines, then the last line ``{"ok": true, "device": {...}}``.
+11. the card's name and power limit again (the limit the run ended under),
+   the ``whatif``, ``amp``, ``traceio``, ``faults``, ``serving`` and
+   ``kernels`` JSON lines, then the last line ``{"ok": true, "device":
+   {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 without the repository's ``src`` beside this file, it fails at once.
@@ -97,6 +123,8 @@ import bisect
 import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -106,10 +134,14 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._pytree import tree_leaves
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch.ckpt import (CheckpointManager, checkpoint_bytes,  # noqa: E402
+                              latest_step)
 from repro_torch.configs import SERVING_COSTS, get_config, serving_cost  # noqa: E402
+from repro_torch.convert import state_from_reference, state_to_reference  # noqa: E402
 from repro_torch.analysis import rank_opportunities  # noqa: E402
 from repro_torch.core import (DEVICE_STREAM, H100_SXM, HOST_THREAD,  # noqa: E402
                               ClusterGraph, CostModel, GraphTransform,
@@ -117,14 +149,19 @@ from repro_torch.core import (DEVICE_STREAM, H100_SXM, HOST_THREAD,  # noqa: E40
                               on_device, simulate, trace_compiled,
                               trace_measured)
 from repro_torch.core.kineto import WAIT_CAT, WAIT_NAME  # noqa: E402
-from repro_torch.data import Prefetcher, make_batch  # noqa: E402
+from repro_torch.data import Prefetcher, SyntheticLM, make_batch  # noqa: E402
+from repro_torch.faults import (FaultEvent, FaultScenario,  # noqa: E402
+                                FaultTimeline, RecoveryModel)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cost as kernel_cost  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
-from repro_torch.models import (build_model, init_cache,  # noqa: E402
-                                init_params, loss_and_grads, make_train_step)
+from repro_torch.models import (build_model, count_params,  # noqa: E402
+                                init_cache, init_params, loss_and_grads,
+                                make_train_step)
 from repro_torch.optim import AdamW, opt_state  # noqa: E402
+from repro_torch.optim.adamw import _flat_buffer  # noqa: E402
+from repro_torch.runtime import FaultTolerantRunner, RetryPolicy  # noqa: E402
 from repro_torch.serve import Request, ServeEngine  # noqa: E402
 from repro_torch.serve import engine as serve_engine  # noqa: E402
 from repro_torch.serving import (ServingPolicy, ServingScenario,  # noqa: E402
@@ -173,6 +210,19 @@ DGC_RATIO = 0.01
 ARCH = "tinyllama-1.1b"
 PT_TRACE = "step.pt.trace.json.gz"   # a capture as torch.profiler exports it
 ROUNDTRIP_TOL = 1e-6                 # tests/golden/trace_roundtrip.json's bound
+# faults phase: one synchronous save after CKPT_STEPS steps at full depth
+# (and at the drills' depth, for the fit); drills of DRILL_STEPS steps at
+# DRILL_LAYERS layers (a 3.69 GB checkpoint each time, where full depth
+# writes 13.2 GB), a save every DRILL_EVERY steps, one failure injected
+# before step DRILL_FAIL, restarted at once (no backoff); the what-if saves
+# every WHATIF_EVERY steps; the median of DRILL_ROUNDS rounds is gated
+CKPT_STEPS = 3
+FIT_SAMPLES = 3                      # saves and restores at the drills' depth
+DRILL_LAYERS, DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 4, 16, 4, 10
+WHATIF_EVERY = 2
+DRILL_BACKOFF_S = 0.0
+DRILL_ROUNDS = 3
+DRILL_HORIZON_S = 3600.0             # simulated wall clock, far past the drill
 # serving phase: the cost model fitted at the serve shape (4 x 512 prompt
 # tokens, the serve phase's batch without its padding) for ARCH and for the
 # registry's other dense arch that fits the card; the fidelity workload, at
@@ -1556,6 +1606,468 @@ def traceio_phase(name: str, traces: Path, handoff: dict) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+def _filesystem(path: Path) -> dict:
+    """The filesystem ``path`` lies on: type and mount point from
+    /proc/mounts (the longest mount point above it), and its free bytes."""
+    real, best = os.path.realpath(path), ("?", "/")
+    with open("/proc/mounts") as f:
+        for line in f:
+            fstype, mnt = line.split()[2], line.split()[1].replace("\\040", " ")
+            if ((real == mnt or real.startswith(mnt.rstrip("/") + "/"))
+                    and len(mnt) >= len(best[1])):
+                best = (fstype, mnt)
+    return {"path": str(path), "type": best[0], "mount": best[1],
+            "free_bytes": shutil.disk_usage(real).free}
+
+
+def _npy_bytes(step_dir: Path) -> int:
+    """The payload bytes of a checkpoint's ``.npy`` files, from their
+    headers."""
+    readers = {(1, 0): np.lib.format.read_array_header_1_0,
+               (2, 0): np.lib.format.read_array_header_2_0}
+    total = 0
+    for path in step_dir.glob("*.npy"):
+        with open(path, "rb") as f:
+            shape, _, dtype = readers[np.lib.format.read_magic(f)](f)
+        total += math.prod(shape) * dtype.itemsize
+    return total
+
+
+def _state_diff(a, b) -> float:
+    """The largest |a - b| over the leaves of two trainer states (or
+    params trees): 0.0 when every leaf is ``torch.equal`` in the same dtype,
+    inf when the trees or dtypes differ."""
+    na, nb = _named(a), _named(b)
+    if sorted(na) != sorted(nb):
+        return math.inf
+    worst = 0.0
+    for k, x in na.items():
+        y = nb[k]
+        if x.dtype != y.dtype or x.shape != y.shape:
+            return math.inf
+        if not torch.equal(x, y):
+            d = (x.float() - y.float()).abs().max().item()
+            worst = max(worst, d if d > 0 else math.inf)     # inf: NaNs
+    return worst
+
+
+def _clone_state(state) -> dict:
+    """A copy of a trainer state that a step can update in place (the AdamW
+    moments flat-backed again)."""
+    opt = state["opt"]
+    new = opt_state(opt["m"], opt["v"], int(opt["count"]))
+    new["gnorm"].copy_(opt["gnorm"])
+    return {"params": _tree_map(torch.clone, state["params"]), "opt": new,
+            "step": state["step"].clone()}
+
+
+def _fit_and_save(cfg, directory: Path) -> tuple:
+    """``Trainer.fit`` of CKPT_STEPS fused steps with one synchronous save
+    after the last: (trainer, state, the save's seconds)."""
+    stamps = []
+    trainer = Trainer(cfg, TrainerConfig(steps=CKPT_STEPS, log_every=0, seed=0,
+                                         ckpt_every=CKPT_STEPS,
+                                         ckpt_dir=str(directory),
+                                         ckpt_async=False),
+                      optimizer=AdamW(fused=True), device=DEV)
+    state = trainer.fit(Prefetcher(_batches(cfg, TRAIN_SEQ, TRAIN_BATCH)),
+                        hooks=lambda i, m: stamps.append(time.perf_counter()))
+    sync()          # the hook ran after step CKPT_STEPS - 1 was read back
+    return trainer, state, time.perf_counter() - stamps[-1]
+
+
+def _restore(cfg, directory: Path) -> tuple:
+    """A fresh trainer's ``restore_or_init`` (``like`` on meta tensors):
+    (trainer, state, seconds)."""
+    trainer = Trainer(cfg, TrainerConfig(ckpt_dir=str(directory), log_every=0),
+                      optimizer=AdamW(fused=True), device=DEV)
+    sync()
+    t0 = time.perf_counter()
+    state = trainer.restore_or_init()
+    sync()
+    return trainer, state, time.perf_counter() - t0
+
+
+def _delete(directory: Path) -> float:
+    """Seconds to delete a checkpoint directory: what
+    ``CheckpointManager.save`` also pays, once it holds ``keep`` of them,
+    to drop the oldest."""
+    t0 = time.perf_counter()
+    shutil.rmtree(directory)
+    return time.perf_counter() - t0
+
+
+def _check_checkpoint(cfg, state, restored, directory: Path, label: str) -> int:
+    """The checkpoint's bytes on disk against ``checkpoint_bytes`` and
+    12 B per parameter + 12 (bf16 params on an f32 carrier, f32 m and v,
+    count, gnorm, step), and the restored state bit-equal to the saved one
+    with flat-backed moments.  Returns the bytes."""
+    n = count_params(cfg)
+    est, on_disk = checkpoint_bytes(state), _npy_bytes(
+        directory / f"step_{latest_step(str(directory)):08d}")
+    diff = _state_diff(restored, state)
+    for tree in ("m", "v"):
+        _flat_buffer(tree_leaves(restored["opt"][tree]))     # raises if not
+    print(f"faults: {label}: checkpoint_bytes {est} B, .npy payloads {on_disk} B, "
+          f"12 x {n} + 12 = {12 * n + 12} B (need all equal); restored state "
+          f"{'bit-equal' if diff == 0 else f'off by {diff:.3g}'} (need bit-equal), "
+          f"moments flat-backed")
+    if not est == on_disk == 12 * n + 12 or diff != 0:
+        fail(f"{label} checkpoint: {est} / {on_disk} / {12 * n + 12} B, diff {diff}")
+    return est
+
+
+def _progress_reaches(scn, spec: str, n: int) -> tuple:
+    """(the simulated wall time at which the committed-step timeline
+    reaches ``n``, the prediction at that horizon).  The goodput engine
+    samples its progress at fault events and at the horizon only, so the
+    time is the shortest horizon whose timeline ends at ``n`` or more
+    (bisected to 1e-7 of it: committed steps only grow with the horizon)."""
+    def at(h):
+        pred = dataclasses.replace(scn, horizon_s=h).predict(spec)
+        return pred.progress_timeline.value_at(h), pred
+
+    lo, hi = 0.0, scn.horizon_s
+    done, pred = at(hi)
+    if done < n:
+        fail(f"the simulated drill commits {done} of {n} steps in {hi} s")
+    while hi - lo > 1e-7 * hi:
+        mid = (lo + hi) / 2
+        done, got = at(mid)
+        if done >= n:
+            hi, pred = mid, got
+        else:
+            lo = mid
+    return hi, pred
+
+
+def _drill(cfg, trainer, directory: Path, every: int, fail_at) -> dict:
+    """``FaultTolerantRunner`` over ``trainer``'s step on
+    ``SyntheticLM.batch_at(i)`` for DRILL_STEPS steps, a synchronous save
+    through ``CheckpointManager`` every ``every`` steps, restores onto the
+    card, and one failure injected before step ``fail_at`` (None: none):
+    the wall time (host clock, from ``run`` to its end, ending in a sync),
+    each save's and restore's seconds (from a sync: the steps before them
+    are not theirs), the launches, the steps executed and the final
+    state."""
+    mgr = CheckpointManager(str(directory))
+    # made before the run: the drill times steps, checkpoints and restarts,
+    # not the host's Python loop that generates a batch
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
+    batches = [data.batch_at(i) for i in range(DRILL_STEPS)]
+    like = state_to_reference(cfg, trainer.init_state("meta"))
+    executed, fired, saves, restores = [], [], [], []
+
+    def timed(fn, into):
+        def call(*args):
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            sync()
+            into.append(time.perf_counter() - t0)
+            return out
+        return call
+
+    def step(state, i):
+        executed.append(i)
+        batch = {k: torch.from_numpy(v).to(DEV) for k, v in batches[i].items()}
+        return trainer.step_fn(state, batch)[0]
+
+    def restore():
+        if mgr.latest_step() is None:
+            return None
+        tree, last = mgr.restore_latest(like, device=DEV)
+        return state_from_reference(cfg, tree, DEV), last
+
+    def inject(i):
+        if i == fail_at and not fired:
+            fired.append(i)
+            raise RuntimeError(f"injected failure before step {i}")
+
+    runner = FaultTolerantRunner(
+        trainer.init_state, step,
+        timed(lambda state, i: mgr.save(i, state_to_reference(cfg, state)), saves),
+        timed(restore, restores), policy=RetryPolicy(backoff_s=DRILL_BACKOFF_S),
+        save_every=every)
+    ops.reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    state = runner.run(DRILL_STEPS, inject_failure=inject)
+    sync()
+    wall = time.perf_counter() - t0
+    out = {"wall_s": wall, "launches": ops.launch_counts(),
+           "flash_by_variant": dict(flash_kernel.launches_by_variant),
+           "executed_steps": len(executed), "restarts": runner.restarts,
+           "failures": runner.failures, "saves_s": saves,
+           # the probe before step 0 finds no checkpoint: not a restore
+           "restores_s": restores[1:],
+           "step_s": (wall - sum(saves) - sum(restores)) / len(executed),
+           "state": state}
+    shutil.rmtree(directory)
+    return out
+
+
+def faults_phase(cfg, name: str, kernels: list, tmp: Path) -> dict:
+    """Checkpoint/restart and the goodput-under-failures simulator on the
+    card (paper §6's predict -> implement -> measure, for a fault drill):
+    the full-depth round trip (one synchronous save in ``Trainer.fit``, one
+    ``save_async``, a restore into a fresh trainer, bit-equal, and the next
+    step from it); the checkpoint cost (``ckpt_bandwidth``,
+    ``ckpt_latency_s``) fitted to the saves (write and deletion of the
+    oldest) and restores at full depth and at DRILL_LAYERS layers; the
+    drill predicted by ``FaultScenario`` from
+    the traced step and the fitted cost, then run by
+    ``FaultTolerantRunner`` and measured, for the baseline and for
+    ``ckpt_interval:steps=2``, and once without a failure; last
+    ``python -m repro_torch.launch.goodput`` on the drill step's capture.
+    Checkpoints go under ``tmp``.  Returns the ``faults`` JSON object."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    ck = tmp / "ckpt"
+    fs = _filesystem(tmp)
+    full_bytes = 12 * count_params(cfg) + 12
+    print(f"faults: checkpoints under {fs['path']}: filesystem {fs['type']} "
+          f"mounted at {fs['mount']}, {fs['free_bytes']} bytes free (the write "
+          f"rate below is that filesystem's, not the card's)")
+    if fs["free_bytes"] < 2.5 * full_bytes:
+        fail(f"{fs['free_bytes']} bytes free for two {full_bytes}-byte checkpoints")
+
+    # 1. the round trip at full width and depth
+    trainer, state, save_s = _fit_and_save(cfg, ck / "full")
+    mgr = CheckpointManager(str(ck / "async"))
+    t1 = time.perf_counter()
+    mgr.save_async(CKPT_STEPS - 1, state_to_reference(cfg, state))
+    block_s = time.perf_counter() - t1
+    mgr.wait()
+    wait_s = time.perf_counter() - t1 - block_s
+    delete_s = _delete(ck / "async")
+    fresh, restored, restore_s = _restore(cfg, ck / "full")
+    nbytes = _check_checkpoint(cfg, state, restored, ck / "full", "full depth")
+    shutil.rmtree(ck / "full")
+    batch = _device_batch(cfg, CKPT_STEPS)
+    live = []
+    for _ in range(2):
+        after, m = trainer.step_fn(_clone_state(state), batch)
+        live.append((float(m["loss"]), after["params"]))
+        del after
+    ops.reset_launch_counts()
+    after, m = fresh.step_fn(restored, batch)
+    loss_r = float(m["loss"])
+    counts = ops.launch_counts()
+    variants = dict(flash_kernel.launches_by_variant)
+    L = cfg.n_layers
+    per_step = {"flash_attention": L, "rmsnorm": 2 * L + 1, "fused_adam": 1,
+                "dgc_mask": 0}
+    spread = abs(live[0][0] - live[1][0])
+    deterministic = spread == 0 and _state_diff(live[0][1], live[1][1]) == 0
+    off = abs(loss_r - live[0][0])
+    same = (_state_diff(after["params"], live[0][1]) == 0 and off == 0
+            if deterministic else off <= spread)
+    print(f"faults: full depth: save in Trainer.fit {save_s:.3f} s, save_async "
+          f"blocking {block_s:.3f} s + wait {wait_s:.3f} s, a checkpoint deleted "
+          f"in {delete_s:.3f} s, restore_or_init {restore_s:.3f} s "
+          f"({nbytes / 1e9:.3f} GB); the next step: live "
+          f"{live[0][0]!r} / {live[1][0]!r} (deterministic {deterministic}), "
+          f"restored {loss_r!r} (need {'bit-equal' if deterministic else 'within the live spread'}); "
+          f"launches {counts}, flash by kernel {variants} (need {per_step}, all wgmma)")
+    if not same:
+        fail(f"the restored state's next step {loss_r!r} against the live {live}")
+    if counts != per_step or variants != {"wgmma": L, "scalar": 0}:
+        fail(f"restored step's launches {counts} {variants}")
+    round_trip = {"arch": cfg.name, "layers": L, "checkpoint_bytes": nbytes,
+                  "save_s": save_s, "save_async_block_s": block_s,
+                  "save_async_wait_s": wait_s, "delete_s": delete_s,
+                  "restore_s": restore_s,
+                  "next_loss": {"live": [x for x, _ in live], "restored": loss_r},
+                  "deterministic_step": deterministic, "launches": counts}
+    meta_full = fresh.init_state("meta")
+    del trainer, state, fresh, restored, after, live, batch
+    torch.cuda.empty_cache()
+
+    # 2. the checkpoint cost fitted at two sizes; the drill's step traced.
+    # A save of a run that checkpoints again and again writes one checkpoint
+    # and then deletes the oldest (keep-last-k): at full depth the write and
+    # a deletion timed apart, at the drills' depth FIT_SAMPLES saves of a
+    # manager keeping one, on a directory that holds one, timed whole
+    cfg4 = cfg.with_(n_layers=DRILL_LAYERS)
+    t4, state4, _ = _fit_and_save(cfg4, ck / "fit")
+    mgr = CheckpointManager(str(ck / "fit"), keep=1)
+    saves4 = []
+    for j in range(FIT_SAMPLES):
+        sync()
+        t1 = time.perf_counter()
+        mgr.save(CKPT_STEPS + j, state_to_reference(cfg4, state4))
+        saves4.append(time.perf_counter() - t1)
+    restores4 = []
+    for _ in range(FIT_SAMPLES):
+        _, restored4, t = _restore(cfg4, ck / "fit")
+        restores4.append(t)
+    bytes4 = _check_checkpoint(cfg4, state4, restored4, ck / "fit",
+                               f"{DRILL_LAYERS} layers")
+    shutil.rmtree(ck / "fit")
+    del state4
+    x = np.array([nbytes] * 2 + [bytes4] * 2 * FIT_SAMPLES, dtype=np.float64)
+    y = np.array([save_s + delete_s, restore_s] + saves4 + restores4)
+    slope, lat = np.polyfit(x, y, 1)
+    if lat < 0 or slope <= 0:
+        # the cost per byte grows with the size (or falls), which a latency
+        # >= 0 and a bandwidth cannot hold at both sizes: held at the
+        # drills' size (where a fit that holds passes too), with no latency
+        slope, lat = float(y[2:].mean() / bytes4), 0.0
+    holder = {"state": restored4}
+    batch4 = _device_batch(cfg4, 0)
+
+    def step():
+        holder["state"], _ = t4.step_fn(holder["state"], batch4)
+
+    (tmp / "faults").mkdir()
+    bundle = trace_measured(step, device=DEV, save_to=str(tmp / "faults" / PT_TRACE))
+    del holder, restored4, batch4
+    cost = CostModel(hw=H100_SXM)
+    base = Scenario(graph=bundle.graph, cost=cost)
+    default = RecoveryModel.from_scenario(base, params_tree=meta_full)
+    rec = dataclasses.replace(
+        RecoveryModel.from_scenario(base, params_tree=t4.init_state("meta")),
+        detection_s=0.0, repair_s=0.0, restart_s=DRILL_BACKOFF_S,
+        ckpt_bandwidth=1.0 / slope, ckpt_latency_s=float(lat))
+    fitted_full = nbytes * slope + lat
+    fit = {"points": [{"bytes": int(b), "seconds": float(t), "what": w} for b, t, w in
+                      zip(x, y, ["save + delete", "restore"]
+                          + ["save"] * FIT_SAMPLES + ["restore"] * FIT_SAMPLES)],
+           "ckpt_bandwidth": rec.ckpt_bandwidth, "ckpt_latency_s": rec.ckpt_latency_s,
+           "full_write_s": fitted_full, "default_full_write_s": default.checkpoint_write_s,
+           "default_ckpt_bandwidth": default.ckpt_bandwidth,
+           "ratio_to_default": fitted_full / default.checkpoint_write_s}
+    print(f"faults: {DRILL_LAYERS} layers ({bytes4 / 1e9:.3f} GB): saves (write, "
+          f"then the oldest deleted) " + ", ".join(f"{t:.3f}" for t in saves4)
+          + " s, restores " + ", ".join(f"{t:.3f}" for t in restores4)
+          + f" s; least squares over the saves and restores at both depths: "
+          f"ckpt_bandwidth {rec.ckpt_bandwidth / 1e9:.4f} GB/s, "
+          f"ckpt_latency_s {rec.ckpt_latency_s:.4f}; full-depth write {fitted_full:.3f} s "
+          f"against H100_SXM's default {default.checkpoint_write_s:.3f} s "
+          f"({nbytes / 1e9:.4f} GB / {default.ckpt_bandwidth / 1e9:.0f} GB/s + "
+          f"{default.ckpt_latency_s} s): ratio {fit['ratio_to_default']:.3f}")
+
+    # 3. the drill: predicted, then run and measured
+    scn = FaultScenario(graph=bundle.graph, cost=cost, recovery=rec,
+                        horizon_s=DRILL_HORIZON_S, ckpt_interval_steps=DRILL_EVERY,
+                        timeline=FaultTimeline((), DRILL_HORIZON_S))
+    steady = scn.baseline().makespan
+
+    def failing(every):
+        # the failure comes before step DRILL_FAIL: after DRILL_FAIL steps
+        # and the saves among them, on the simulated clock (1 us later, so
+        # that a save ending there commits)
+        at = DRILL_FAIL * steady + DRILL_FAIL // every * rec.checkpoint_write_s
+        return dataclasses.replace(scn, timeline=FaultTimeline(
+            (FaultEvent(at + 1e-6, "fail"),), DRILL_HORIZON_S))
+
+    predicted, preds = {}, {}
+    for label, scenario, spec in (
+            ("baseline", failing(DRILL_EVERY), "noop"),
+            ("ckpt_interval", failing(WHATIF_EVERY), f"ckpt_interval:steps={WHATIF_EVERY}"),
+            ("no_failure", scn, "noop")):
+        predicted[label], preds[label] = _progress_reaches(scenario, spec, DRILL_STEPS)
+    if preds["baseline"].steady_step_s != steady or bundle.simulate().makespan != steady:
+        fail("the fault scenario's steady step is not the traced step's makespan")
+    print(f"faults: predicted ({DRILL_STEPS} steps, traced steady step "
+          f"{steady * 1e3:.3f} ms, checkpoint write = restore "
+          f"{rec.checkpoint_write_s:.3f} s, failure before step {DRILL_FAIL}): "
+          + ", ".join(f"{k} {v:.3f} s ({preds[k].report.failures} failure(s), "
+                      f"{preds[k].report.lost_steps} steps lost)"
+                      for k, v in predicted.items()))
+
+    runs = {k: [] for k in predicted}
+    finals = {}
+    # the drills with a failure in each round, the reference without once
+    drills = [(r, label, every, DRILL_FAIL) for r in range(DRILL_ROUNDS)
+              for label, every in (("baseline", DRILL_EVERY),
+                                   ("ckpt_interval", WHATIF_EVERY))]
+    drills.append((0, "no_failure", DRILL_EVERY, None))
+    if not deterministic:       # how far two uninterrupted drills end apart
+        drills.append((1, "no_failure", DRILL_EVERY, None))
+    per4 = {"flash_attention": DRILL_LAYERS, "rmsnorm": 2 * DRILL_LAYERS + 1,
+            "fused_adam": 1, "dgc_mask": 0}
+    total = dict.fromkeys(per4, 0)
+    for r, label, every, fail_at in drills:
+        d = _drill(cfg4, t4, ck / label, every, fail_at)
+        # the steps after the last save before the failure run twice
+        last = max((i for i in range(fail_at or 0) if (i + 1) % every == 0),
+                   default=-1)
+        want_steps = DRILL_STEPS + (fail_at - last - 1 if fail_at else 0)
+        want = {k: v * want_steps for k, v in per4.items()}
+        want_var = {"wgmma": DRILL_LAYERS * want_steps, "scalar": 0}
+        print(f"faults: round {r} drill {label} (save every {every}, failure "
+              f"before step {fail_at}): {d['wall_s']:.3f} s measured, "
+              f"{predicted[label]:.3f} s predicted ({predicted[label] / d['wall_s'] - 1:+.2%}); "
+              f"{d['executed_steps']} steps run, {d['restarts']} restart(s); "
+              f"launches {d['launches']} (need {want}), flash by kernel "
+              f"{d['flash_by_variant']}")
+        if (d["executed_steps"] != want_steps or d["launches"] != want
+                or d["flash_by_variant"] != want_var
+                or d["restarts"] != (1 if fail_at else 0)):
+            fail(f"drill {label}: {d['executed_steps']} steps, launches "
+                 f"{d['launches']} {d['flash_by_variant']}, {d['restarts']} restarts")
+        for k in total:
+            total[k] += d["launches"][k]
+        runs[label].append({k: d[k] for k in d if k != "state"})
+        finals[label if label not in finals else f"{label} {r}"] = d["state"]
+    ref_state = finals["no_failure"]
+    diffs = {k: _state_diff(finals[k], ref_state) for k in ("baseline", "ckpt_interval")}
+    spread = 0.0 if deterministic else _state_diff(finals["no_failure 1"], ref_state)
+    print(f"faults: final states against the drill without a failure: "
+          + ", ".join(f"{k} {'bit-equal' if v == 0 else f'off by {v:.3g}'}"
+                      for k, v in diffs.items())
+          + (" (need bit-equal: the step is deterministic)" if deterministic else
+             f" (need within {spread:.3g}, two drills without a failure apart)"))
+    if max(diffs.values()) > spread:
+        fail(f"the resumed drills' final states differ from the uninterrupted "
+             f"one's: {diffs}, spread {spread}")
+    del finals, ref_state
+    measured = {k: float(np.median([d["wall_s"] for d in v])) for k, v in runs.items()}
+    steps_s = [d["step_s"] for v in runs.values() for d in v]
+    saves_s = [t for v in runs.values() for d in v for t in d["saves_s"]]
+    restores_s = [t for v in runs.values() for d in v for t in d["restores_s"]]
+    print(f"faults: in the drills: step {np.median(steps_s) * 1e3:.3f} ms (median; "
+          f"{min(steps_s) * 1e3:.3f}-{max(steps_s) * 1e3:.3f}) against the traced "
+          f"{steady * 1e3:.3f} ms; save {np.median(saves_s):.3f} s "
+          f"({min(saves_s):.3f}-{max(saves_s):.3f}), restore "
+          f"{np.median(restores_s):.3f} s ({min(restores_s):.3f}-"
+          f"{max(restores_s):.3f}) against the fitted {rec.checkpoint_write_s:.3f} s")
+    errors = {k: predicted[k] / measured[k] - 1 for k in predicted}
+    print(f"faults: median of {DRILL_ROUNDS} round(s): "
+          + ", ".join(f"{k} predicted {predicted[k]:.3f} s, measured {measured[k]:.3f} s "
+                      f"({errors[k]:+.2%})" for k in predicted)
+          + f" (need baseline within {FIDELITY_TOL:.0%}, ckpt_interval within "
+          f"{PREDICT_TOL:.0%})")
+    if abs(errors["baseline"]) > FIDELITY_TOL or abs(errors["ckpt_interval"]) > PREDICT_TOL:
+        fail(f"fault drill predictions off: {errors}")
+
+    # 4. the goodput CLI on the drill step's capture
+    cmd = [sys.executable, "-m", "repro_torch.launch.goodput", "--trace-dir",
+           str(tmp / "faults"), "--what-if", f"ckpt_interval:steps={WHATIF_EVERY}"]
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+    cli = subprocess.run(cmd, capture_output=True, text=True, env=env, timeout=300)
+    for line in (cli.stderr + cli.stdout).splitlines():
+        print(f"faults:   {line[:160]}")
+    if cli.returncode != 0 or "steps/h" not in cli.stdout:
+        fail(f"python -m repro_torch.launch.goodput exited {cli.returncode}")
+    for kern in kernels:
+        kern.setdefault("launches_by_path", {})["faults"] = total[kern["name"]]
+    del bundle, scn, preds, t4
+    torch.cuda.empty_cache()
+    return {"device": name, "filesystem": fs, "round_trip": round_trip, "fit": fit,
+            "drill": {"layers": DRILL_LAYERS, "checkpoint_bytes": bytes4,
+                      "steps": DRILL_STEPS, "save_every": DRILL_EVERY,
+                      "whatif_save_every": WHATIF_EVERY, "fail_before_step": DRILL_FAIL,
+                      "steady_step_s": steady, "rounds": DRILL_ROUNDS,
+                      "predicted_s": predicted, "measured_s": measured,
+                      "errors": errors, "runs": runs,
+                      "final_state_diff": diffs, "launches": total},
+            "goodput_cli": {"exit": cli.returncode, "table": cli.stdout.splitlines()},
+            "phase_s": time.perf_counter() - t0}
+
+
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at |x|: 2^(exponent - 8), frexp's mantissa in [0.5, 1)."""
     return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
@@ -1693,11 +2205,12 @@ def main() -> None:
         amp = amp_phase(cfg, name, kernels, traces, handoff)
         traceio = traceio_phase(name, traces, handoff)
         del handoff
+        faults = faults_phase(cfg, name, kernels, traces)
     serving = serving_phase()   # last: no profiled phase follows its launches
     for kern in kernels:    # the count from this slice's main path, or its own
         paths = kern["launches_by_path"]
         paths["serving"] = serving["launches"][kern["name"]]
-        kern["launches"] = paths["serving"] or paths.get("amp") or paths.get("dgc", 0)
+        kern["launches"] = paths["faults"] or paths.get("dgc", 0)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms", "shape",
             "launches_by_path", "launches_per_train_step"]
@@ -1708,6 +2221,7 @@ def main() -> None:
     print(json.dumps({"whatif": whatif}))
     print(json.dumps({"amp": amp}))
     print(json.dumps({"traceio": traceio}))
+    print(json.dumps({"faults": faults}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))

@@ -12,9 +12,11 @@ PyTorch backward, the fused AdamW update (CUDA C++) and the DGC threshold
 pass (CUDA C++); and Daydream itself: the simulator core and what-if
 registry (``core``, ``obs``, ``parallel.plan``, carried over from ``repro``)
 with a trace route of its own (``core.trace_measured``: torch.profiler's
-CUDA kernel and runtime records -> dependency graph).  Entry points run on
-``cuda`` unless the caller passes ``device="cpu"``; on the CPU each kernel
-wrapper runs its plain version.
+CUDA kernel and runtime records -> dependency graph); checkpoint/restart
+(``ckpt``, the reference's on-disk layout; ``runtime.FaultTolerantRunner``)
+and goodput under failures (``faults``, ``launch.goodput``).  Entry points
+run on ``cuda`` unless the caller passes ``device="cpu"``; on the CPU each
+kernel wrapper runs its plain version.
 """
 
 import torch

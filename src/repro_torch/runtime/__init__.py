@@ -1,5 +1,7 @@
 """Training runtime helpers (counterpart of ``repro.runtime``)."""
 
-from .fault import Heartbeat, StragglerMonitor
+from .fault import (FaultTolerantRunner, Heartbeat, StragglerMonitor,
+                    RetryPolicy)
 
-__all__ = ["Heartbeat", "StragglerMonitor"]
+__all__ = ["FaultTolerantRunner", "Heartbeat", "StragglerMonitor",
+           "RetryPolicy"]

@@ -1,8 +1,12 @@
-"""Liveness and straggler monitoring for the training runtime (the port's own
-copy of ``Heartbeat`` and ``StragglerMonitor`` from
-``repro/runtime/fault.py``, which is framework-free but part of the JAX
-package).
+"""Fault tolerance and straggler monitoring for the training runtime (the
+port's own copy of ``repro/runtime/fault.py``, which is framework-free but
+part of the JAX package).
 
+  * :class:`RetryPolicy` / :class:`FaultTolerantRunner` — run a step function
+    under checkpoint/restart semantics: on failure, restore the latest
+    committed checkpoint and continue.  Exceptions count against a failure
+    budget; exceeding it re-raises (a real deployment would escalate to the
+    cluster scheduler).
   * :class:`Heartbeat` — liveness file other processes/watchdogs can monitor.
   * :class:`StragglerMonitor` — per-step deadline tracking against a rolling
     median; flags slow steps and calls a mitigation hook.
@@ -10,11 +14,19 @@ package).
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import statistics
 import time
-from typing import Callable, List, Optional
+from typing import Any, Callable, List, Optional
+
+
+@dataclasses.dataclass
+class RetryPolicy:
+    max_failures: int = 3
+    backoff_s: float = 0.1
+    backoff_mult: float = 2.0
 
 
 class Heartbeat:
@@ -69,3 +81,73 @@ class StragglerMonitor:
 
     def median(self) -> float:
         return statistics.median(self.times) if self.times else 0.0
+
+
+class FaultTolerantRunner:
+    """Checkpoint/restart wrapper around a stateful step loop.
+
+    The caller supplies:
+      * ``make_state()``      — build fresh state (init or restore),
+      * ``step_fn(state, i)`` — one training step, returns new state,
+      * ``save(state, i)``    — checkpoint hook,
+      * ``restore()``         — returns (state, step) from the latest
+                                committed checkpoint, or None.
+    ``inject_failure`` lets tests (and chaos drills) raise at a chosen step.
+    """
+
+    def __init__(self, make_state: Callable[[], Any],
+                 step_fn: Callable[[Any, int], Any],
+                 save: Callable[[Any, int], None],
+                 restore: Callable[[], Optional[tuple]],
+                 policy: RetryPolicy = RetryPolicy(),
+                 save_every: int = 50,
+                 heartbeat: Optional[Heartbeat] = None,
+                 straggler: Optional[StragglerMonitor] = None) -> None:
+        self.make_state = make_state
+        self.step_fn = step_fn
+        self.save = save
+        self.restore = restore
+        self.policy = policy
+        self.save_every = save_every
+        self.heartbeat = heartbeat
+        self.straggler = straggler or StragglerMonitor()
+        self.failures = 0
+        self.restarts = 0
+
+    def run(self, num_steps: int,
+            inject_failure: Optional[Callable[[int], None]] = None) -> Any:
+        restored = self.restore()
+        if restored is not None:
+            state, start = restored
+            start += 1
+        else:
+            state, start = self.make_state(), 0
+        i = start
+        backoff = self.policy.backoff_s
+        while i < num_steps:
+            try:
+                if inject_failure is not None:
+                    inject_failure(i)
+                t0 = time.time()
+                state = self.step_fn(state, i)
+                self.straggler.record(i, time.time() - t0)
+                if self.heartbeat:
+                    self.heartbeat.beat(i)
+                if (i + 1) % self.save_every == 0 or i + 1 == num_steps:
+                    self.save(state, i)
+                i += 1
+                backoff = self.policy.backoff_s
+            except Exception:
+                self.failures += 1
+                if self.failures > self.policy.max_failures:
+                    raise
+                time.sleep(backoff)
+                backoff *= self.policy.backoff_mult
+                restored = self.restore()
+                if restored is not None:
+                    state, last = restored
+                    i = last + 1
+                else:
+                    state, i = self.make_state(), 0
+                self.restarts += 1
+        return state

@@ -1,7 +1,8 @@
-"""repro_torch as a package (``traceio``, ``analysis`` and ``serving``
-included): it imports neither JAX nor the JAX package, its entry points
-refuse to run without CUDA unless asked for the CPU, the launcher runs on
-the CPU, and the kernel build keys, logs and reports.
+"""repro_torch as a package (``traceio``, ``analysis``, ``serving``,
+``ckpt`` and ``faults`` included): it imports neither JAX nor the JAX
+package, its entry points refuse to run without CUDA unless asked for the
+CPU, the launchers run on the CPU (the train launcher resuming from its
+``--ckpt-dir``), and the kernel build keys, logs and reports.
 """
 
 import ast
@@ -57,6 +58,12 @@ def test_importing_every_module_loads_no_jax():
                 "repro_torch.serving", "repro_torch.configs.serving",
                 "repro_torch.configs.llama3_2_1b", "repro_torch.configs.llama3_405b",
                 "repro_torch.launch.serve_sim"} <= set(names), names
+        assert {f"repro_torch.faults.{m}" for m in (
+                    "events", "recovery", "goodput", "scenario")} | {
+                "repro_torch.faults", "repro_torch.ckpt",
+                "repro_torch.ckpt.checkpoint", "repro_torch.convert",
+                "repro_torch.launch.goodput",
+                "repro_torch.launch.perf_report"} <= set(names), names
     """)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
@@ -119,6 +126,28 @@ def test_train_launcher_trains_on_cpu(tmp_path):
     metrics = json.loads(out.read_text())
     assert [m["step"] for m in metrics] == [0, 1, 2, 3]
     assert all(m["loss"] > 0 and m["grad_norm"] > 0 for m in metrics)
+
+
+def test_train_launcher_resumes_from_ckpt_dir(tmp_path):
+    """``--ckpt-dir``: a run of 4 steps checkpoints its last step, and a
+    run to 6 on the same directory trains steps 4 and 5 only."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    ckpt = tmp_path / "ckpt"
+    steps = []
+    for n in (4, 6):
+        out = tmp_path / f"metrics{n}.json"
+        run = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+             "--device", "cpu", "--steps", str(n), "--batch", "2", "--seq", "16",
+             "--log-every", "0", "--ckpt-dir", str(ckpt), "--metrics-out",
+             str(out)], env=env, cwd=tmp_path, capture_output=True, text=True,
+            timeout=300)
+        assert run.returncode == 0, run.stdout + run.stderr
+        steps.append([m["step"] for m in json.loads(out.read_text())])
+    assert steps == [[0, 1, 2, 3], [4, 5]]
+    assert sorted(os.listdir(ckpt)) == ["step_00000003", "step_00000005"]
+    manifest = json.loads((ckpt / "step_00000005" / "manifest.json").read_text())
+    assert manifest["step"] == 5 and "params.blocks.attn.wq" in manifest["leaves"]
 
 
 def test_launcher_serves_on_cpu(capsys):

@@ -243,9 +243,21 @@ def test_training_reduces_loss():
 
 
 def test_trainer_refuses_checkpoint_dir(tmp_path):
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Trainer(get_smoke_config(ARCH), TrainerConfig(ckpt_dir=str(tmp_path)),
-                device="cpu")
+    """A checkpoint directory is taken (the trainer checkpoints:
+    tests/test_torch_ckpt.py); a path that is a file is refused, as the
+    reference's trainer refuses it."""
+    from repro.train import Trainer as JaxTrainer
+    from repro.train import TrainerConfig as JaxTrainerConfig
+    Trainer(get_smoke_config(ARCH), TrainerConfig(ckpt_dir=str(tmp_path / "ck")),
+            device="cpu")
+    assert (tmp_path / "ck").is_dir()
+    (tmp_path / "file").write_text("not a directory")
+    with pytest.raises(FileExistsError):
+        Trainer(get_smoke_config(ARCH),
+                TrainerConfig(ckpt_dir=str(tmp_path / "file")), device="cpu")
+    with pytest.raises(FileExistsError):
+        JaxTrainer(jax_configs.get_smoke_config(ARCH),
+                   JaxTrainerConfig(ckpt_dir=str(tmp_path / "file")))
 
 
 # -------------------------------------------------------------- substrate
