@@ -69,7 +69,23 @@
    capture itself (a faithful replay, loss 0) and the H100 cost model's
    constants fitted to it, with the analytical bfloat16 step priced before
    and after;
-9. faults: checkpoint/restart and the goodput simulator
+9. launch: Daydream's command-line tools and ``core/calibrate.py`` on the
+   card, reading phases 6 and 7's captures.  ``measure_local_backend`` at
+   the reference's defaults (1024, float32) and filling the card (8192, in
+   float32 and bfloat16): matmul FLOP/s, element-wise bytes/s and the no-op
+   launch and sync, each held above 0 and at most 1.05x the data sheet;
+   both ``calibrated_cost_model``s printed; the host microseconds per
+   operator with and without torch.profiler; ``perf_report``'s compiled
+   route (the per-device train_4k step of the reference's 256-chip cell,
+   1 x 4096, on meta tensors: its roofline rows gated, 22 / 45 / 1 kernel
+   tasks) simulated with the data sheet and the calibrated rates, against
+   the same step measured on the card (launch counts exact, ratios
+   printed); then ``diagnose``, ``calibrate``, ``perf_report`` (trace,
+   goodput, serving and compiled routes) and ``hillclimb
+   --search-whatif 2`` run as subprocesses at once: exit 0, their key
+   lines, the exported prediction re-imported, hillclimb's rounds never
+   slower;
+10. faults: checkpoint/restart and the goodput simulator
    (``repro_torch.{ckpt,runtime,faults}``), checkpoints in a temporary
    directory (its filesystem and free bytes printed).  At full width and
    depth, bf16, fused AdamW: ``Trainer.fit`` of 3 steps with one
@@ -94,7 +110,7 @@
    and the what-if within 16% of their measured wall times (medians of 3
    rounds); last
    ``python -m repro_torch.launch.goodput`` on the drill step's capture;
-10. serving: the serving simulator (``repro_torch.serving``) fitted to the
+11. serving: the serving simulator (``repro_torch.serving``) fitted to the
    engine and checked against it at full width, last, so that no profiled
    phase follows its launches.  ``measure_serving_costs`` of llama3.2-1b
    once, and of tinyllama-1.1b in each of ``SERVING_ROUNDS`` rounds, at 4
@@ -108,10 +124,11 @@
    error within 16%; both speedups above 1, the baseline measured in every
    third round); the serve phase's mixed prompts predicted and measured
    (printed); launch counts read around the whole phase, exact;
-11. the card's name and power limit again (the limit the run ended under),
-   the ``whatif``, ``amp``, ``traceio``, ``faults``, ``serving`` and
-   ``kernels`` JSON lines, then the last line ``{"ok": true, "device":
-   {...}}``.
+12. the card's name and power limit again (the limit the run ended under),
+   the ``whatif``, ``amp``, ``traceio``, ``faults``, ``serving``, ``launch``
+   and ``kernels`` JSON lines (each kernel's ``launches`` from the launch
+   phase's measured steps, DGC's from its own path), then the last line
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 without the repository's ``src`` beside this file, it fails at once.
@@ -129,6 +146,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -140,7 +158,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.ckpt import (CheckpointManager, checkpoint_bytes,  # noqa: E402
                               latest_step)
-from repro_torch.configs import SERVING_COSTS, get_config, serving_cost  # noqa: E402
+from repro_torch.configs import (SERVING_COSTS, SHAPES, get_config,  # noqa: E402
+                                 serving_cost)
 from repro_torch.convert import state_from_reference, state_to_reference  # noqa: E402
 from repro_torch.analysis import rank_opportunities  # noqa: E402
 from repro_torch.core import (DEVICE_STREAM, H100_SXM, HOST_THREAD,  # noqa: E402
@@ -148,6 +167,9 @@ from repro_torch.core import (DEVICE_STREAM, H100_SXM, HOST_THREAD,  # noqa: E40
                               Scenario, TaskKind, all_of, measure_wallclock,
                               on_device, simulate, trace_compiled,
                               trace_measured)
+from repro_torch.core.analytical import graph_from_meta_events  # noqa: E402
+from repro_torch.core.calibrate import (calibrated_cost_model,  # noqa: E402
+                                        measure_local_backend)
 from repro_torch.core.kineto import WAIT_CAT, WAIT_NAME  # noqa: E402
 from repro_torch.data import Prefetcher, SyntheticLM, make_batch  # noqa: E402
 from repro_torch.faults import (FaultEvent, FaultScenario,  # noqa: E402
@@ -156,6 +178,7 @@ from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cost as kernel_cost  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
+from repro_torch.launch import perf_report  # noqa: E402
 from repro_torch.models import (build_model, count_params,  # noqa: E402
                                 init_cache, init_params, loss_and_grads,
                                 make_train_step)
@@ -210,6 +233,18 @@ DGC_RATIO = 0.01
 ARCH = "tinyllama-1.1b"
 PT_TRACE = "step.pt.trace.json.gz"   # a capture as torch.profiler exports it
 ROUNDTRIP_TOL = 1e-6                 # tests/golden/trace_roundtrip.json's bound
+# launch phase: the calibration sizes (the reference's CPU defaults, then a
+# size that fills the card), the data sheet each reading is held under, the
+# cheap operators timed with and without torch.profiler, the per-device
+# train_4k step of the reference's 256-chip data-parallel cell, and the CLIs
+CAL_SIZES = [(1024, "float32"), (8192, "float32"), (8192, "bfloat16")]
+PEAK_F32_FLOPS = 67e12               # H100 SXM dense f32, CUDA cores (data sheet)
+PEAK_TF32_FLOPS = 494.7e12           # the same with TF32 tensor cores
+SHEET_TOL = 1.05                     # a reading above this x the sheet is impossible
+PROFILER_OPS, PROFILER_ROUNDS = 2000, 5
+LAUNCH_SHAPE, LAUNCH_CHIPS = "train_4k", 256
+LAUNCH_RUNS = 3                      # measure_wallclock calls of WHATIF_ITERS steps
+CLI_TIMEOUT_S = 400
 # faults phase: one synchronous save after CKPT_STEPS steps at full depth
 # (and at the drills' depth, for the fit); drills of DRILL_STEPS steps at
 # DRILL_LAYERS layers (a 3.69 GB checkpoint each time, where full depth
@@ -1606,6 +1641,268 @@ def traceio_phase(name: str, traces: Path, handoff: dict) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+def _sheet(dtype_str: str) -> float:
+    """The data sheet's matrix-product peak for ``dtype_str`` on the H100
+    SXM, as torch runs it (float32 on the CUDA cores unless TF32 is on)."""
+    if dtype_str == "bfloat16":
+        return PEAK_BF16_FLOPS
+    return PEAK_TF32_FLOPS if torch.backends.cuda.matmul.allow_tf32 else PEAK_F32_FLOPS
+
+
+def _profiler_cost() -> dict:
+    """Host microseconds per cheap operator (an in-place add on 1024
+    floats) issued in a chain of PROFILER_OPS, without and with
+    torch.profiler active as ``trace_measured`` runs it (CPU and CUDA
+    activities, shapes recorded); medians of PROFILER_ROUNDS interleaved
+    rounds, each issue timed on the host clock before its sync."""
+    x = torch.zeros(1024, device=DEV)
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if DEV == "cuda":
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+
+    def chain() -> float:
+        t0 = time.perf_counter()
+        for _ in range(PROFILER_OPS):
+            x.add_(1.0)
+        dt = time.perf_counter() - t0
+        sync()
+        return dt
+
+    chain()
+    plain, prof = [], []
+    for _ in range(PROFILER_ROUNDS):
+        plain.append(chain())
+        with torch.profiler.profile(activities=acts, record_shapes=True):
+            prof.append(chain())
+    us = {k: sorted(v)[len(v) // 2] / PROFILER_OPS * 1e6
+          for k, v in (("plain", plain), ("profiled", prof))}
+    return {**us, "added": us["profiled"] - us["plain"]}
+
+
+def _run_clis(cmds: dict, cwd: Path) -> dict:
+    """Run each ``python -m <argv>`` with ``PYTHONPATH=src``, all at once
+    (they run on the host only), and wait for every one: name -> exit code,
+    seconds, stdout, stderr."""
+    env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
+
+    def one(argv):
+        t0 = time.perf_counter()
+        try:
+            p = subprocess.run([sys.executable, "-m", *argv], cwd=cwd, env=env,
+                               capture_output=True, text=True, timeout=CLI_TIMEOUT_S)
+        except subprocess.TimeoutExpired as e:     # run() has killed it
+            return {"exit": None, "s": time.perf_counter() - t0, "stdout": str(e.stdout),
+                    "stderr": f"timed out after {CLI_TIMEOUT_S}s"}
+        return {"exit": p.returncode, "s": time.perf_counter() - t0,
+                "stdout": p.stdout, "stderr": p.stderr}
+
+    with ThreadPoolExecutor(len(cmds)) as pool:
+        futures = {k: pool.submit(one, argv) for k, argv in cmds.items()}
+        return {k: f.result() for k, f in futures.items()}
+
+
+def launch_phase(cfg, name: str, kernels: list, traces: Path, handoff: dict,
+                 amp: dict) -> dict:
+    """Daydream's command-line tools and ``core/calibrate.py`` on the card:
+    the device's rates measured against its data sheet; the profiler's host
+    cost per operator; ``perf_report``'s compiled route (the per-device
+    train_4k step of the reference's 256-chip cell, traced on meta tensors)
+    priced by the data sheet and by the calibrated rates, against the same
+    step measured; then the four CLIs as a user runs them, on the whatif and
+    amp phases' captures.  Returns the ``launch`` JSON object."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    # 1. the device's rates, at the reference's defaults and filling the card
+    rates = {}
+    for size, dt in CAL_SIZES:
+        m = measure_local_backend(size, dt, device=DEV)
+        sheet = {"matmul_flops_per_s": _sheet(dt), "elementwise_bytes_per_s": PEAK_BYTES}
+        share = {k: m[k] / v for k, v in sheet.items()}
+        rates[f"{dt} {size}"] = {**m, "share_of_sheet": share}
+        print(f"launch: measure_local_backend({size}, {dt!r}): matmul "
+              f"{m['matmul_flops_per_s']:.4g} FLOP/s ({share['matmul_flops_per_s']:.2%} of "
+              f"{sheet['matmul_flops_per_s']:.4g}), elementwise "
+              f"{m['elementwise_bytes_per_s']:.4g} B/s ({share['elementwise_bytes_per_s']:.2%} "
+              f"of {PEAK_BYTES:.4g}), no-op launch and sync {m['op_overhead_s'] * 1e6:.2f} us "
+              f"(H100_SXM assumes op_overhead {H100_SXM.op_overhead * 1e6:.0f} us, "
+              f"host_dispatch {H100_SXM.host_dispatch * 1e6:.0f} us)")
+        if not (min(m.values()) > 0 and max(share.values()) <= SHEET_TOL):
+            fail(f"calibration at {size} {dt}: {m} (need > 0 and <= {SHEET_TOL}x "
+                 f"the data sheet)")
+    size, dt = CAL_SIZES[-1]
+    costs = {"H100_SXM": CostModel(hw=H100_SXM),
+             "calibrated": calibrated_cost_model(device=DEV, size=size, dtype_str=dt),
+             "calibrated_defaults": calibrated_cost_model(device=DEV)}
+    for label in ("calibrated", "calibrated_defaults"):
+        print(f"launch: {label} cost model: {costs[label].hw}")
+    torch.cuda.empty_cache()
+
+    # 2. the profiler's host cost per operator (ROADMAP C5)
+    prof = _profiler_cost()
+    n_ops = sum(e.get("cat") == "cpu_op" for e in handoff["fused"].module)
+    issue_ms, lane_ms = amp["issue_wait_ms"]["fp32"][0], amp["fp32_host_lane_ms"]
+    print(f"launch: host us per operator ({PROFILER_OPS} in-place adds, median of "
+          f"{PROFILER_ROUNDS}): {prof['plain']:.3f} without torch.profiler, "
+          f"{prof['profiled']:.3f} with it: {prof['added']:+.3f} us each; the bf16 "
+          f"fused step's capture holds {n_ops} operator records, so profiling adds "
+          f"~{prof['added'] * n_ops / 1e3:.1f} ms of host time to a step; the float32 "
+          f"step issued in {issue_ms:.1f} ms unprofiled, its profiled host lane "
+          f"{lane_ms:.1f} ms (amp phase)")
+
+    # 3. perf_report's compiled route at full width and depth
+    shape = SHAPES[LAUNCH_SHAPE]
+    t1 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    bundle = perf_report.trace_cell(cfg, shape, LAUNCH_CHIPS)
+    trace_s = time.perf_counter() - t1
+    if torch.cuda.memory_allocated() != before:
+        fail("perf_report.trace_cell allocated device memory")
+    tot, fb, base, modeled = perf_report.flash_rooflines(bundle, cfg, shape, LAUNCH_CHIPS)
+    cal_rows = perf_report.flash_rooflines(bundle, cfg, shape, LAUNCH_CHIPS,
+                                           cost=costs["calibrated"])[2:]
+    rows = {"compiled": base, "with flash": modeled, "compiled (calibrated)": cal_rows[0],
+            "with flash (calibrated)": cal_rows[1]}
+    for label, r in rows.items():
+        print(f"launch: {label:<24}: {perf_report.format_row(ARCH, LAUNCH_SHAPE, 'single', r)}")
+    print(f"launch: attention core {tot['attn_bytes'] / 1e9:.1f} GB of "
+          f"{tot['bytes'] / 1e9:.1f} GB -> flash kernel {fb / 1e9:.2f} GB per device")
+    bad_rows = [k for k, r in rows.items() if not (
+        r["compute_s"] > 0 and r["memory_s"] > 0 and r["collective_s"] == 0
+        and r["bound"] in ("compute", "memory") and 0 < r["useful_compute_ratio"] <= 1
+        and 0 < r["roofline_fraction"] <= 1 and r["chips"] == LAUNCH_CHIPS)]
+    if bad_rows or not (modeled["memory_s"] < base["memory_s"]
+                        and 0 < fb < tot["attn_bytes"] < tot["bytes"]):
+        fail(f"perf_report rows {bad_rows} out of range: {rows}, {tot}, {fb}")
+    L = cfg.n_layers
+    dev = bundle.graph.lane_tasks(DEVICE_STREAM)
+    tasks = {k: sum(t.attrs.get("kernel") == k for t in dev)
+             for k in ("flash_attention", "rmsnorm", "fused_adam", "dgc_mask")}
+    want = {"flash_attention": L, "rmsnorm": 2 * L + 1, "fused_adam": 1, "dgc_mask": 0}
+    if tasks != want:
+        fail(f"the compiled route's kernel tasks {tasks} != {want}")
+    sim = {"H100_SXM": bundle.simulate().makespan * 1e3}
+    for label in ("calibrated", "calibrated_defaults"):
+        g, _ = graph_from_meta_events(bundle.module, costs[label])
+        sim[label] = simulate(g).makespan * 1e3
+    n_dev = len(dev)
+    del bundle, dev
+    print(f"launch: trace_cell (meta tensors) in {trace_s:.1f}s: {n_dev} device tasks, "
+          f"kernel tasks {tasks} (need {want}); simulated step " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in sim.items()))
+
+    # the same per-device step on the card
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in make_batch(
+        cfg, seq_len=shape.seq_len, batch=shape.global_batch // LAUNCH_CHIPS,
+        step=0).items()}
+    trainer = Trainer(cfg, TrainerConfig(steps=1, log_every=0, seed=0),
+                      optimizer=AdamW(fused=True), device=DEV)
+    holder = {"state": trainer.init_state(), "steps": 0}
+    _rescale_attention(cfg, holder["state"]["params"])
+
+    def step():
+        holder["state"], holder["metrics"] = trainer.step_fn(holder["state"], batch)
+        holder["steps"] += 1
+
+    ops.reset_launch_counts()
+    runs = [measure_wallclock(step, device=DEV, iters=WHATIF_ITERS, warmup=1) * 1e3
+            for _ in range(LAUNCH_RUNS)]
+    sync()
+    counts, by_variant = ops.launch_counts(), dict(flash_kernel.launches_by_variant)
+    n = holder["steps"]
+    want_counts = {"flash_attention": L * n, "rmsnorm": (2 * L + 1) * n,
+                   "fused_adam": n, "dgc_mask": 0}
+    loss = float(holder["metrics"]["loss"])
+    del holder, trainer, batch
+    torch.cuda.empty_cache()
+    measured = sorted(runs)[len(runs) // 2]
+    ratios = {k: v / measured for k, v in sim.items()}
+    print(f"launch: the per-device step on the card (batch {shape.global_batch // LAUNCH_CHIPS}"
+          f" x {shape.seq_len}, AdamW(fused=True), CUDA events, medians of "
+          f"{WHATIF_ITERS}): " + ", ".join(f"{r:.3f}" for r in runs)
+          + f" ms, median {measured:.3f} ms, last loss {loss:.4f}; analytical / "
+          f"measured " + ", ".join(f"{k} {v:.4f}" for k, v in ratios.items())
+          + f" (printed, not gated); launches over its {n} steps {counts}, flash by "
+          f"kernel {by_variant} (need {want_counts}, all 'wgmma')")
+    if counts != want_counts or by_variant != {"wgmma": L * n, "scalar": 0}:
+        fail(f"launch phase launch counts {counts} {by_variant} != {want_counts}")
+    if not math.isfinite(loss):
+        fail(f"non-finite loss {loss} in the launch phase's step")
+    for kern in kernels:
+        kern.setdefault("launches_by_path", {})["launch"] = counts[kern["name"]]
+
+    # 4. the CLIs as a user runs them
+    fused, perleaf, out = traces / "fused", traces / "perleaf", traces / "launch"
+    out.mkdir()
+    cmds = {
+        "diagnose": ["repro_torch.launch.diagnose", "--trace-dir", str(fused),
+                     "--calibrate", "--what-if", "fused_optimizer"],
+        "calibrate": ["repro_torch.launch.calibrate", "--trace-dir", str(fused), "--diff"],
+        "perf_report_trace": ["repro_torch.launch.perf_report", "--trace-dir", str(perleaf),
+                              "--what-if", "fused_optimizer", "--critical-path",
+                              "--timeline", "--export-trace", str(out / "export")],
+        "perf_report_goodput": ["repro_torch.launch.perf_report", "--trace-dir",
+                                str(perleaf), "--goodput"],
+        "perf_report_serving": ["repro_torch.launch.perf_report", "--serving",
+                                "--arch", ARCH],
+        "perf_report_cluster": ["repro_torch.launch.perf_report", "--arch", ARCH,
+                                "--shape", LAUNCH_SHAPE, "--cluster", "4", "--what-if",
+                                "amp", "--out", str(out)],
+        "hillclimb": ["repro_torch.launch.hillclimb", "--arch", ARCH, "--shape",
+                      LAUNCH_SHAPE, "--tag", "smoke", "--search-whatif", "2",
+                      "--out", str(out)],
+    }
+    keys = {"diagnose": ["wape before", "== critical path", "== opportunity ranking",
+                         "== what-if fused_optimizer =="],
+            "calibrate": ["wape before", "wape after", "makespan rel err"],
+            "perf_report_trace": ["== what-if fused_optimizer on imported traces ==",
+                                  "== critical path", "== timelines",
+                                  "exported 1 per-worker Chrome traces"],
+            "perf_report_goodput": ["== goodput: 1 worker(s)", "noop"],
+            "perf_report_serving": [f"== serving {ARCH}:", "noop"],
+            "perf_report_cluster": ["compiled    : ", "with flash  : ", "== what-if amp ==",
+                                    "== cluster x4: 4 workers", "attention-loop bytes"],
+            "hillclimb": ["== what-if search ordering", "round 1: ", "wrote "]}
+    t1 = time.perf_counter()
+    clis = _run_clis(cmds, out)
+    clis_s = time.perf_counter() - t1
+    for k, r in clis.items():
+        missing = [key for key in keys[k] if key not in r["stdout"]]
+        lines = r["stdout"].splitlines()
+        print(f"launch: python -m {cmds[k][0]} {' '.join(cmds[k][1:])}: exit {r['exit']} "
+              f"in {r['s']:.1f}s, {len(lines)} lines")
+        for line in (lines if k in ("hillclimb", "perf_report_cluster") else lines[-6:]):
+            print(f"launch:   {line[:160]}")
+        if r["exit"] != 0 or missing:
+            print(r["stderr"][-3000:], file=sys.stderr)
+            fail(f"{cmds[k][0]} exited {r['exit']}, missing {missing}")
+    predicted = float(clis["perf_report_trace"]["stdout"].split("predicted :")[1]
+                      .split("ms")[0])
+    back = simulate(load_trace_dir(str(out / "export")).graphs[0]).makespan * 1e3
+    rec = json.loads((out / f"{ARCH}__{LAUNCH_SHAPE}__single__smoke.json").read_text())
+    trail = [rec["baseline_ms"]] + [r["predicted_ms"] for r in rec["trail"]]
+    print(f"launch: the export re-imported: {back:.6f} ms against the printed "
+          f"{predicted:.3f} ms; hillclimb baseline and rounds {trail} ms (need each "
+          f"no slower than the one before); the CLIs in {clis_s:.1f}s together, "
+          f"phase {time.perf_counter() - t0:.1f}s")
+    if abs(back - predicted) > 5e-4 + 1e-6 * predicted:
+        fail(f"the exported prediction re-imports to {back} ms, printed {predicted} ms")
+    if not rec["trail"] or any(b > a for a, b in zip(trail, trail[1:])):
+        fail(f"hillclimb's trail {trail} is not descending")
+    return {"device": name, "rates": rates,
+            "calibrated_hw": {k: dataclasses.asdict(c.hw) for k, c in costs.items()},
+            "profiler_us_per_op": prof, "fused_step_operator_records": n_ops,
+            "compiled": {"shape": f"{LAUNCH_SHAPE}, {shape.global_batch // LAUNCH_CHIPS} x "
+                         f"{shape.seq_len} per device of {LAUNCH_CHIPS}",
+                         "trace_s": trace_s, "device_tasks": n_dev, "kernel_tasks": tasks,
+                         "rows": rows, "attn_bytes": tot["attn_bytes"],
+                         "flash_bytes": fb, "simulated_ms": sim},
+            "measured": {"runs_ms": runs, "ms": measured, "steps": n, "launches": counts},
+            "ratios": ratios,
+            "clis": {k: {"exit": r["exit"], "s": r["s"]} for k, r in clis.items()},
+            "clis_s": clis_s, "export_reimport_ms": back, "hillclimb_trail_ms": trail,
+            "phase_s": time.perf_counter() - t0}
+
+
 def _filesystem(path: Path) -> dict:
     """The filesystem ``path`` lies on: type and mount point from
     /proc/mounts (the longest mount point above it), and its free bytes."""
@@ -2204,13 +2501,14 @@ def main() -> None:
         whatif = whatif_phase(cfg, name, kernels, traces)
         amp = amp_phase(cfg, name, kernels, traces, handoff)
         traceio = traceio_phase(name, traces, handoff)
+        launch = launch_phase(cfg, name, kernels, traces, handoff, amp)
         del handoff
         faults = faults_phase(cfg, name, kernels, traces)
     serving = serving_phase()   # last: no profiled phase follows its launches
     for kern in kernels:    # the count from this slice's main path, or its own
         paths = kern["launches_by_path"]
         paths["serving"] = serving["launches"][kern["name"]]
-        kern["launches"] = paths["faults"] or paths.get("dgc", 0)
+        kern["launches"] = paths["launch"] or paths.get("dgc", 0)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms", "shape",
             "launches_by_path", "launches_per_train_step"]
@@ -2223,6 +2521,7 @@ def main() -> None:
     print(json.dumps({"traceio": traceio}))
     print(json.dumps({"faults": faults}))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"launch": launch}))
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -224,8 +224,12 @@ H100_SXM = HardwareSpec(
     ici_bandwidth=450e9,                # NVLink bytes/s per direction
     hbm_bytes=80 * 1024 ** 3,
     pcie_bandwidth=64e9,
-    # The two launch constants below are assumed, not measured on the card:
-    # calibration (a later slice) replaces them with a measured no-op launch.
+    # The two launch constants below are assumed, not read off the card; they
+    # stay, since every golden and parity test prices inserted tasks with
+    # them.  The card's own values come from repro_torch.core.calibrate
+    # (measure_local_backend's no-op launch and sync: calibrated_cost_model
+    # puts a quarter of it in op_overhead and all of it in host_dispatch),
+    # as chip_smoke.py's launch phase measures and prints them.
     op_overhead=2e-6,                   # per-kernel issue overhead (seconds)
     host_dispatch=5e-6,                 # host enqueue of one kernel launch
 )

@@ -64,6 +64,9 @@ def test_importing_every_module_loads_no_jax():
                 "repro_torch.ckpt.checkpoint", "repro_torch.convert",
                 "repro_torch.launch.goodput",
                 "repro_torch.launch.perf_report"} <= set(names), names
+        assert {f"repro_torch.launch.{m}" for m in (
+                    "calibrate", "diagnose", "hillclimb")} | {
+                "repro_torch.core.calibrate"} <= set(names), names
     """)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     out = subprocess.run([sys.executable, "-c", code], env=env, cwd=ROOT,
