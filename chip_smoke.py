@@ -14,10 +14,13 @@
    kernel each case took; the gradients through the flash-attention and RMSNorm
    ``autograd.Function``s against autograd of the plain versions; then each
    kernel, its plain version and one PyTorch library call timed at the
-   main-path shapes: device time from torch.profiler (``ms``) and time per
-   back-to-back call from CUDA events (``call_ms``, host launch cost
-   included); flash attention's CUDA-core kernel timed on the same inputs
-   as its tensor-core kernel;
+   main-path shapes: device time from torch.profiler (``ms``; its raw
+   record count and unscaled time kept beside it), held against the device
+   time from CUDA events with the host's launches hidden behind a sleep
+   kernel (``event_ms``), and time per back-to-back call from CUDA events
+   (``call_ms``, host launch cost included); flash attention's CUDA-core kernel timed on the same inputs
+   as its tensor-core kernel; then flash attention, RMSNorm and fused_adam
+   checked and timed at the moe model's shapes (phase 11's);
 4. serve: tinyllama-1.1b at full width in bf16 from a seeded generator, four
    requests of 128-512 prompt tokens and 32 new tokens each through
    ``ServeEngine.generate``, with the kernels' launch counts read around that
@@ -110,7 +113,28 @@
    and the what-if within 16% of their measured wall times (medians of 3
    rounds); last
    ``python -m repro_torch.launch.goodput`` on the drill step's capture;
-11. serving: the serving simulator (``repro_torch.serving``) fitted to the
+11. moe: the moe family, moonshot-v1-16b-a3b, after every tinyllama tensor
+   is freed (the memory still allocated printed and gated).  Served at full
+   width and depth in bf16 (57.78 GB of weights) through
+   ``ServeEngine.generate`` as in phase 4, launch counts exact (48 flash per
+   prefill, all on the tensor-core kernel, 97 RMSNorm per forward), device
+   time per prefill and decode step against the decode step's read bound
+   (every expert's weights: the reference dispatches decode at capacity 1
+   over all experts), logits finite.  At 2 layers in float32 on the same
+   weights (attention rescaled): the kernel path against the plain path
+   (``kernels/ref.py`` swapped in), expert indices and prefill logits
+   gated; decode against a fresh prefill at the config's capacity
+   (printed) and where no slot can drop (gated at the reference's MoE
+   tolerance).  Trained at 2 layers, 1 x 4096, bf16, ``SyntheticLM``,
+   ``Trainer.fit(AdamW(fused=True))``, through ``Prefetcher`` and again on
+   batches made before the loop: launches exact per step, the loss
+   split into cross-entropy and the aux term, every gradient finite, the
+   router's and every expert's nonzero, ``moe_ffn`` forward and backward
+   with syncs made errors.  Daydream's FusedAdam case on that step (phase
+   6's gates) with a device-ms table by layer, then ``perf_report.trace_cell``
+   of the fused step on meta tensors (2 / 5 / 1 kernel tasks), its
+   simulated step printed against the measured one;
+12. serving: the serving simulator (``repro_torch.serving``) fitted to the
    engine and checked against it at full width, last, so that no profiled
    phase follows its launches.  ``measure_serving_costs`` of llama3.2-1b
    once, and of tinyllama-1.1b in each of ``SERVING_ROUNDS`` rounds, at 4
@@ -124,9 +148,9 @@
    error within 16%; both speedups above 1, the baseline measured in every
    third round); the serve phase's mixed prompts predicted and measured
    (printed); launch counts read around the whole phase, exact;
-12. the card's name and power limit again (the limit the run ended under),
-   the ``whatif``, ``amp``, ``traceio``, ``faults``, ``serving``, ``launch``
-   and ``kernels`` JSON lines (each kernel's ``launches`` from the launch
+13. the card's name and power limit again (the limit the run ended under),
+   the ``whatif``, ``amp``, ``traceio``, ``faults``, ``serving``, ``launch``,
+   ``moe`` and ``kernels`` JSON lines (each kernel's ``launches`` from the launch
    phase's measured steps, DGC's from its own path), then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -137,7 +161,10 @@ without the repository's ``src`` beside this file, it fails at once.
 from __future__ import annotations
 
 import bisect
+import contextlib
 import dataclasses
+import functools
+import gc
 import json
 import math
 import os
@@ -148,6 +175,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -179,9 +207,10 @@ from repro_torch.kernels import cost as kernel_cost  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.launch import perf_report  # noqa: E402
-from repro_torch.models import (build_model, count_params,  # noqa: E402
-                                init_cache, init_params, loss_and_grads,
-                                make_train_step)
+from repro_torch.models import (active_params, build_model,  # noqa: E402
+                                count_params, init_cache, init_params,
+                                loss_and_grads, loss_fn, make_train_step)
+from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.optim import AdamW, opt_state  # noqa: E402
 from repro_torch.optim.adamw import _flat_buffer  # noqa: E402
 from repro_torch.runtime import FaultTolerantRunner, RetryPolicy  # noqa: E402
@@ -271,6 +300,26 @@ WHATIF_REQUESTS, WHATIF_SLOTS = 8, 8 # one static batch of 8 against two of 4
 # by 10-20% over seconds (PERF.md, serving): each round's fit predicts the
 # runs next to it, and the gates read the median of 11 rounds' errors
 SERVING_ROUNDS = 11
+# moe phase: moonshot-v1-16b-a3b served at full width and depth, and trained
+# at MOE_TRAIN_LAYERS layers (20 B per parameter for the fused step: 2 layers
+# are 36.9 GB, 4 would be 59.8 GB before activations), one sequence of
+# TRAIN_SEQ per step.  The 2-layer float32 model on the same weights is run
+# through the kernels and through their plain versions: the share of equal
+# expert indices must be at least MOE_ROUTE_SHARE and the prefill logits
+# within MOE_LOGITS_RTOL of their largest magnitude.  Decode against a fresh
+# prefill is held to the reference's MoE tolerance (tests/test_models.py:
+# top-1 agreement >= 0.5, relative max error < 0.15)
+MOE_ARCH = "moonshot-v1-16b-a3b"
+MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH = 2, 1
+MOE_ROUTE_SHARE, MOE_LOGITS_RTOL = 0.999, 1e-3
+MOE_TOP1, MOE_REL = 0.5, 0.15
+MOE_HELD_GB = 2.0                    # device memory allowed to outlive the phases before
+# device timing: a torch.profiler session with no device record is run again,
+# up to PROFILE_TRIES sessions; a kernel row's profiler time must lie within
+# PROFILE_TOL of its CUDA-event time, less PROFILE_GAP_MS per device operation
+# for the device's gaps between back-to-back kernels, which the events include
+PROFILE_TRIES = 3
+PROFILE_TOL, PROFILE_GAP_MS = 0.05, 0.003
 
 
 def fail(msg: str) -> None:
@@ -310,41 +359,131 @@ def prime_profiler() -> None:
         sync()
 
 
-def device_profile(fn, iters: int = 20, warmup: int = 3):
-    """(device ms, device operations, host ms, top) per call of ``fn``: the
-    CUDA kernels and copies that torch.profiler records over ``iters`` calls,
-    after ``warmup`` calls, the host clock over them (ending in a sync; the
-    profiler's own cost included), and the 8 largest device ms by op name."""
+class Profile(NamedTuple):
+    ms: float            # device ms per call
+    ops: int             # device operations per call
+    host_ms: float       # host ms per call, the profiler's own cost included
+    top: list            # the 8 largest (device ms per call, op name)
+    records: int         # device records in the session
+    unscaled_ms: float   # the records' device time over the calls made
+
+
+def device_profile(fn, iters: int = 20, warmup: int = 3) -> Profile:
+    """The CUDA kernels and copies that torch.profiler records over ``iters``
+    calls of ``fn``, after ``warmup`` calls, and the host clock over them
+    (ending in a sync).  Every call launches the same operations, but CUPTI
+    drops records (19 of 20 single-kernel calls, session after session, and
+    once about half of them, for a cause not known: ROADMAP C19) and was never
+    seen to add one, so each op name's time per call is its recorded mean
+    times its records over ``iters``, rounded up: exact while fewer than
+    ``iters`` of its records are lost.
+    ``timings`` holds this against CUDA events.  A session with no device
+    record at all (seen after sessions of tens of thousands of records) is
+    run again, up to PROFILE_TRIES sessions."""
     for _ in range(warmup):
         fn()
     sync()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            fn()
-        sync()
-        host = time.perf_counter() - t0
-    # the model's record_function scopes also show as spans on the device
-    # timeline (gpu_user_annotation): they are no device work
-    ops_ = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.is_user_annotation]
-    us = sum(e.time_range.elapsed_us() for e in ops_)
-    if not us > 0:
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            sync()
+            host = time.perf_counter() - t0
+        # the model's record_function scopes also show as spans on the device
+        # timeline (gpu_user_annotation): they are no device work
+        ops_ = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation]
+        us = sum(e.time_range.elapsed_us() for e in ops_)
+        if us > 0:
+            break
+        print(f"device_profile: session {attempt} of {PROFILE_TRIES} recorded no device time")
+    else:
         fail("torch.profiler recorded no device time")
     by_name = {}
     for e in ops_:
-        by_name[e.name] = by_name.get(e.name, 0) + e.time_range.elapsed_us()
-    top = sorted(((t / iters / 1e3, n[:70]) for n, t in by_name.items()), reverse=True)[:8]
-    return us / iters / 1e3, len(ops_) / iters, host / iters * 1e3, top
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    per_call = {name: math.ceil(n / iters) for name, (n, _) in by_name.items()}
+    us_call = {name: t / n * per_call[name] for name, (n, t) in by_name.items()}
+    n_ops = sum(per_call.values())
+    if n_ops * iters != len(ops_):
+        print(f"device_profile: {len(ops_)} device records over {iters} calls, not "
+              f"{n_ops} per call: each op's time per call is its recorded mean x its "
+              f"calls")
+    top = sorted(((t / 1e3, n[:70]) for n, t in us_call.items()), reverse=True)[:8]
+    return Profile(sum(us_call.values()) / 1e3, max(1, n_ops), host / iters * 1e3, top,
+                   len(ops_), us / iters / 1e3)
+
+
+@functools.lru_cache(maxsize=None)
+def _sleep_cycles_per_ms() -> float:
+    """The rate of ``torch.cuda._sleep``'s cycles, by CUDA events."""
+    cycles = 1 << 24
+    torch.cuda._sleep(cycles)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def event_ms(fn, iters: int = 20) -> float:
+    """Device ms per call of ``fn`` by CUDA events, with the host's launch
+    cost hidden: a sleep kernel queued first holds the device until the host
+    has queued all ``iters`` calls, which then run back to back (the device's
+    gaps between kernels included).  The sleep is twice the host time of
+    ``iters`` calls ending in a sync, and four times longer again if the
+    host was still queueing when it ended."""
+    for _ in range(3):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync()
+    sleep_ms = 2e3 * (time.perf_counter() - t0) + 1.0
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    for _ in range(PROFILE_TRIES):
+        torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms()))
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if queued_ms < sleep_ms:
+            return start.elapsed_time(end) / iters
+        sleep_ms *= 4
+    fail(f"event_ms: the host took {queued_ms:.3f} ms to queue {iters} calls, "
+         f"longer than the device's sleep")
 
 
 def device_ms(fn, iters: int = 20) -> float:
-    return device_profile(fn, iters)[0]
+    return device_profile(fn, iters).ms
 
 
-def timings(kernel, plain, library, iters: int = 20) -> dict:
-    return {"ms": device_ms(kernel, iters), "plain_ms": device_ms(plain, 5),
+def timings(name: str, kernel, plain, library, iters: int = 20) -> dict:
+    """The kernel's, its plain version's and the library call's device ms
+    (torch.profiler) and ms per back-to-back call; the kernel's profiler
+    time held against its CUDA-event time (``event_ms``) within PROFILE_TOL,
+    less PROFILE_GAP_MS per device operation."""
+    prof, ev = device_profile(kernel, iters), event_ms(kernel, iters)
+    lo = ev * (1 - PROFILE_TOL) - PROFILE_GAP_MS * prof.ops
+    hi = ev * (1 + PROFILE_TOL)
+    print(f"kernels: {name}: torch.profiler {prof.ms:.5f} ms per call ({prof.records} "
+          f"device records over {iters} calls of {prof.ops} ops, {prof.unscaled_ms:.5f} ms "
+          f"unscaled), CUDA events {ev:.5f} ms (need {lo:.5f} to {hi:.5f})")
+    if not lo <= prof.ms <= hi:
+        fail(f"{name}: torch.profiler's {prof.ms:.5f} ms per call disagrees with CUDA "
+             f"events' {ev:.5f} ms")
+    return {"ms": prof.ms, "event_ms": ev,
+            "profiler": {"records": prof.records, "calls": iters, "ops_per_call": prof.ops,
+                         "unscaled_ms": prof.unscaled_ms},
+            "plain_ms": device_ms(plain, 5),
             "library_ms": device_ms(library, iters),
             "call_ms": {"kernel": call_ms(kernel, iters), "plain": call_ms(plain, 5),
                         "library": call_ms(library, iters)}}
@@ -420,7 +559,8 @@ def _flash_entry(gen, cfg, batch: int, seq: int) -> dict:
         fail(f"flash at {tuple(q.shape)}: {err} ({variant}), CUDA-core kernel {scalar_err}")
     del want
     entry = {"max_abs_err": err,
-             **timings(lambda: ops.flash_attention(q, k, v),
+             **timings(f"flash_attention q {tuple(q.shape)}",
+                       lambda: ops.flash_attention(q, k, v),
                        lambda: ref.flash_attention_ref(q, k, v),
                        lambda: F.scaled_dot_product_attention(
                            q, k, v, is_causal=True, enable_gqa=True)),
@@ -479,10 +619,18 @@ def flash_sweep(gen, shapes) -> float:
 
 
 def _rms_entry(gen, cfg, rows: int) -> dict:
+    """RMSNorm at a main-path shape, bf16: checked against its plain version
+    (failing past RMS_ATOL), then the kernel, the plain version and
+    ``F.rms_norm`` timed."""
     x = randn(gen, rows, cfg.d_model, dtype=torch.bfloat16)
     w = randn(gen, cfg.d_model, dtype=torch.bfloat16)
-    return {"max_abs_err": max_err(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w)),
-            **timings(lambda: ops.rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
+    err = max_err(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
+    if not err <= RMS_ATOL[torch.bfloat16]:
+        fail(f"rmsnorm at {tuple(x.shape)} bf16: max abs err {err} "
+             f"(atol {RMS_ATOL[torch.bfloat16]})")
+    return {"max_abs_err": err,
+            **timings(f"rmsnorm x {tuple(x.shape)}",
+                      lambda: ops.rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
                       lambda: F.rms_norm(x, (cfg.d_model,), w, 1e-6)),
             **bound(*kernel_cost.rmsnorm(rows, cfg.d_model, itemsize=2)),
             "shape": f"x {tuple(x.shape)} bf16"}
@@ -588,14 +736,9 @@ def adam_dgc_phase(n_params: int) -> list:
     step's gradient in train_phase)."""
     gen = torch.Generator(device=DEV).manual_seed(1)
     bad = []
-
-    def adam_inputs(n):
-        p, g = randn(gen, n), randn(gen, n)
-        return p, g, randn(gen, n) * 0.1, randn(gen, n).abs() * 0.01
-
     worst = 0.0
-    for n in ADAM_SWEEP + [n_params]:
-        p, g, m, v = adam_inputs(n)
+    for n in ADAM_SWEEP:
+        p, g, m, v = _adam_inputs(gen, n)
         want = ref.fused_adam_ref(p, g, m, v, **ADAM_KW)
         got = ops.fused_adam(p.clone(), g, m.clone(), v.clone(), **ADAM_KW)
         for name, a, b, atol in zip("pmv", got, want, ADAM_ATOL):
@@ -603,30 +746,13 @@ def adam_dgc_phase(n_params: int) -> list:
             worst = max(worst, err)
             if not err <= atol:
                 bad.append(f"fused_adam {name} n={n}: {err}")
-        main_err = max_err(got[0], want[0])
         del want, got
     sync()
-    # at the main-path N: the kernel, the plain version and torch's own fused
-    # AdamW (decoupled weight decay, which is the same update), each in place
-    # on the same buffers
-    lr, c1, c2 = (torch.full((1,), ADAM_KW[k], device=DEV) for k in ("lr", "c1", "c2"))
-    kw = {k: ADAM_KW[k] for k in ("b1", "b2", "eps")}
-    step = torch.ones((), device=DEV)
     adam = {"name": "fused_adam", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_adam.cu",
             "replaces": "src/repro/kernels/fused_adam.py:26",
-            "max_abs_err": main_err,
-            **timings(lambda: ops.fused_adam(p, g, m, v, lr=lr, c1=c1, c2=c2,
-                                             wd=0.1, **kw),
-                      lambda: ref.fused_adam_ref(p, g, m, v, lr=lr, c1=c1, c2=c2,
-                                                 wd=0.1, **kw),
-                      lambda: torch._fused_adamw_(
-                          [p], [g], [m], [v], [], [step], lr=ADAM_KW["lr"],
-                          beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
-                          amsgrad=False, maximize=False), iters=10),
-            **bound(*kernel_cost.fused_adam(n_params), PEAK_F32_FLOPS),
-            "shape": f"p/g/m/v ({n_params},) f32"}
-    del p, g, m, v
+            **_adam_entry(gen, n_params)}
+    worst = max(worst, adam["max_abs_err"])
 
     dworst = 0
     for shape, ratio in DGC_SWEEP:
@@ -641,6 +767,44 @@ def adam_dgc_phase(n_params: int) -> list:
     if bad:
         fail("kernel disagrees with its plain version: " + "; ".join(bad))
     return [adam]
+
+
+def _adam_inputs(gen, n):
+    p, g = randn(gen, n), randn(gen, n)
+    return p, g, randn(gen, n) * 0.1, randn(gen, n).abs() * 0.01
+
+
+def _adam_entry(gen, n: int) -> dict:
+    """fused_adam at a main-path N: checked against the plain version in
+    chunks of 2^26 (the update is elementwise; the kernel runs over all N
+    at once), failing past ADAM_ATOL; then the kernel, the plain version
+    and torch's own fused AdamW (decoupled weight decay, which is the same
+    update) timed, each in place on the same buffers."""
+    p, g, m, v = _adam_inputs(gen, n)
+    got = ops.fused_adam(p.clone(), g, m.clone(), v.clone(), **ADAM_KW)
+    errs = [0.0, 0.0, 0.0]
+    for s0 in range(0, n, 1 << 26):
+        sl = slice(s0, s0 + (1 << 26))
+        want = ref.fused_adam_ref(p[sl], g[sl], m[sl], v[sl], **ADAM_KW)
+        errs = [max(e, max_err(a[sl], b)) for e, a, b in zip(errs, got, want)]
+    del got, want
+    if any(e > atol for e, atol in zip(errs, ADAM_ATOL)):
+        fail(f"fused_adam at n={n}: max abs err p/m/v {errs} (atol {ADAM_ATOL})")
+    lr, c1, c2 = (torch.full((1,), ADAM_KW[k], device=DEV) for k in ("lr", "c1", "c2"))
+    kw = {k: ADAM_KW[k] for k in ("b1", "b2", "eps")}
+    step = torch.ones((), device=DEV)
+    return {"max_abs_err": errs[0],
+            **timings(f"fused_adam n={n}",
+                      lambda: ops.fused_adam(p, g, m, v, lr=lr, c1=c1, c2=c2,
+                                             wd=0.1, **kw),
+                      lambda: ref.fused_adam_ref(p, g, m, v, lr=lr, c1=c1, c2=c2,
+                                                 wd=0.1, **kw),
+                      lambda: torch._fused_adamw_(
+                          [p], [g], [m], [v], [], [step], lr=ADAM_KW["lr"],
+                          beta1=0.9, beta2=0.95, weight_decay=0.1, eps=1e-8,
+                          amsgrad=False, maximize=False), iters=10),
+            **bound(*kernel_cost.fused_adam(n), PEAK_F32_FLOPS),
+            "shape": f"p/g/m/v ({n},) f32"}
 
 
 def _dgc_check(g, ratio: float):
@@ -705,9 +869,9 @@ def serve_phase(cfg, kernels: list) -> int:
     model = build_model(cfg)
     with torch.inference_mode():
         toks = torch.ones(len(reqs), plen, dtype=torch.long, device=DEV)
-        pre_ms, pre_n, _, _ = device_profile(lambda: model.prefill(params, {"tokens": toks}), 3)
+        pre_ms, pre_n, *_ = device_profile(lambda: model.prefill(params, {"tokens": toks}), 3)
         cache = init_cache(cfg, len(reqs), plen + 1, DEV)
-        dec_ms, dec_n, _, _ = device_profile(
+        dec_ms, dec_n, *_ = device_profile(
             lambda: model.decode(params, cache, toks[:, :1], plen), 5)
     host_pre, host_dec = st["prefill_s"] * 1e3, st["decode_s"] / steps * 1e3
     print(f"serve: device time per prefill {pre_ms:.3f} ms over {pre_n:.0f} device "
@@ -1048,7 +1212,7 @@ def train_phase(cfg, kernels: list, n_params: int) -> None:
     def one_step():
         holder["state"], _ = trainer.step_fn(holder["state"], batch)
 
-    dev_ms, dev_n, host_ms, top = device_profile(one_step, iters=1, warmup=0)
+    dev_ms, dev_n, host_ms, top, *_ = device_profile(one_step, iters=1, warmup=0)
     print(f"train: one step under torch.profiler: device {dev_ms:.1f} ms over "
           f"{dev_n:.0f} device ops, host {host_ms:.1f} ms (busy {dev_ms / host_ms:.1%}); "
           f"largest device ms by op: " + "; ".join(f"{n} {t:.1f}" for t, n in top))
@@ -1135,7 +1299,7 @@ def update_phase(grads, state, params) -> None:
         s = clone()
         res[label] = device_profile(lambda: o.apply(grads, s, params), iters=5)
         del s
-    (um, un, uh, _), (fm, fn, fh, _) = res["per-leaf"], res["fused"]
+    (um, un, uh, *_), (fm, fn, fh, *_) = res["per-leaf"], res["fused"]
     print(f"update: AdamW.apply per-leaf {um:.3f} ms device over {un:.0f} device ops "
           f"({uh:.3f} ms host per call); apply_fused {fm:.3f} ms device over "
           f"{fn:.0f} device ops ({fh:.3f} ms host per call); device ratio "
@@ -1146,13 +1310,32 @@ def whatif_phase(cfg, name: str, kernels: list, traces: Path) -> dict:
     """Predict -> implement -> measure for FusedAdam at the train shape; the
     kept capture of the per-leaf step is written under ``traces/perleaf``.
     Returns the ``whatif`` JSON object."""
+    (traces / "perleaf").mkdir(parents=True)
+    out = fused_whatif(cfg, name, kernels, _device_batch(cfg, 0), "whatif",
+                       save_to=str(traces / "perleaf" / PT_TRACE))
+    out.pop("by_layer_ms")
+    return out
+
+
+def fused_whatif(cfg, name: str, kernels: list, batch: dict, tag: str,
+                 save_to=None) -> dict:
+    """Daydream's FusedAdam case (paper §6.3) on the card for ``cfg``'s
+    train step on ``batch``: the per-leaf AdamW step traced
+    (``trace_measured``, its capture saved to ``save_to``), the graph
+    checked (acyclic, fwd/bwd/update present, >= 90% of device time mapped
+    to a layer, every kernel launched by a host task), simulated and held
+    within FIDELITY_TOL of the step measured (CUDA events); ``fused_optimizer``
+    predicted and held within PREDICT_TOL of the fused step measured
+    interleaved per-leaf / fused / per-leaf, both speedups above 1; launch
+    counts exact over every step of the phase (``launches_by_path[tag]``).
+    Lines are printed as ``tag:``.  Returns the JSON object, with the
+    traced and predicted device ms by layer and phase (``by_layer_ms``)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     L = cfg.n_layers
     trainer = Trainer(cfg, TrainerConfig(steps=1, log_every=0, seed=0),
                       optimizer=AdamW(), device=DEV)
     holder = {"state": trainer.init_state()}
-    batch = _device_batch(cfg, 0)
     step_fns = {"per-leaf": trainer.step_fn,
                 "fused": make_train_step(cfg, AdamW(fused=True))}
     calls = dict.fromkeys(step_fns, 0)
@@ -1166,9 +1349,7 @@ def whatif_phase(cfg, name: str, kernels: list, traces: Path) -> dict:
     perleaf, fused = stepper("per-leaf"), stepper("fused")
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    (traces / "perleaf").mkdir(parents=True)
-    bundle = trace_measured(perleaf, device=DEV,
-                            save_to=str(traces / "perleaf" / PT_TRACE))
+    bundle = trace_measured(perleaf, device=DEV, save_to=save_to)
     trace_s = time.perf_counter() - t0
     g = bundle.graph
     g.toposort()                                   # raises on a cycle
@@ -1184,7 +1365,7 @@ def whatif_phase(cfg, name: str, kernels: list, traces: Path) -> dict:
     unlaunched = sum(not any(p.thread == HOST_THREAD for p in g.parents(t)) for t in dev)
     n_update = sum(t.phase == "update" for t in dev)
     agg = bundle.aggregates
-    print(f"whatif: per-leaf AdamW step traced in {trace_s:.1f}s (the fastest of "
+    print(f"{tag}: per-leaf AdamW step traced in {trace_s:.1f}s (the fastest of "
           f"3 captures: host span {agg['span_s'] * 1e3:.3f} ms, slowest "
           f"{agg['slowest_span_s'] * 1e3:.3f} ms): {len(dev)} device "
           f"tasks, {len(tasks) - len(dev)} host tasks, {n_edges} edges; device "
@@ -1204,10 +1385,11 @@ def whatif_phase(cfg, name: str, kernels: list, traces: Path) -> dict:
     pred, tf, _ = scen.evaluate("fused_optimizer")
     fused_task = next(t for t in tf.graph.tasks() if t.name == "fused_optimizer_kernel")
     pred_ms = pred.predicted * 1e3
-    print(f"whatif: simulated per-leaf step {sim_ms:.3f} ms; fused_optimizer "
+    print(f"{tag}: simulated per-leaf step {sim_ms:.3f} ms; fused_optimizer "
           f"predicts {pred_ms:.3f} ms ({pred.speedup:.4f}x), its fused update "
           f"task {fused_task.duration * 1e3:.3f} ms for {fused_task.bytes_accessed / 1e9:.3f} "
           f"GB (a third of the update's {3 * fused_task.bytes_accessed / 1e9:.3f} GB)")
+    by_layer_ms = {"traced": _ms_by_layer_phase(g), "predicted": _ms_by_layer_phase(tf.graph)}
 
     meas = {}
     for variant, fn in (("per-leaf", perleaf), ("fused", fused), ("per-leaf 2", perleaf)):
@@ -1219,13 +1401,13 @@ def whatif_phase(cfg, name: str, kernels: list, traces: Path) -> dict:
     n_steps = sum(calls.values())
     want = {**{k: v * n_steps for k, v in per_step.items()},
             "fused_adam": calls["fused"], "dgc_mask": 0}
-    print(f"whatif: launches over the phase's {calls['per-leaf']} per-leaf and "
+    print(f"{tag}: launches over the phase's {calls['per-leaf']} per-leaf and "
           f"{calls['fused']} fused steps {counts} (expected {want}); peak device "
           f"memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     if counts != want:
-        fail(f"whatif launch counts {counts} != {want}")
+        fail(f"{tag} launch counts {counts} != {want}")
     for kern in kernels:
-        kern.setdefault("launches_by_path", {})["whatif"] = counts[kern["name"]]
+        kern.setdefault("launches_by_path", {})[tag] = counts[kern["name"]]
     graph = {"device_tasks": len(dev), "host_tasks": len(tasks) - len(dev),
              "edges": n_edges, "update_device_tasks": n_update,
              "captured_span_ms": agg["span_s"] * 1e3,
@@ -1239,7 +1421,7 @@ def whatif_phase(cfg, name: str, kernels: list, traces: Path) -> dict:
     fused_ms = meas["fused"]
     fidelity, err = sim_ms / base_ms - 1, pred_ms / fused_ms - 1
     speedups = (sim_ms / pred_ms, base_ms / fused_ms)
-    print(f"whatif: measured (CUDA events, median of {WHATIF_ITERS}) per-leaf "
+    print(f"{tag}: measured (CUDA events, median of {WHATIF_ITERS}) per-leaf "
           f"{meas['per-leaf']:.3f} ms, fused {fused_ms:.3f} ms, per-leaf "
           f"{meas['per-leaf 2']:.3f} ms; baseline simulated {sim_ms:.3f} ms vs "
           f"measured {base_ms:.3f} ms: error {fidelity:+.2%} (need within "
@@ -1253,7 +1435,8 @@ def whatif_phase(cfg, name: str, kernels: list, traces: Path) -> dict:
     if abs(err) > PREDICT_TOL or min(speedups) <= 1:
         fail(f"FusedAdam prediction {pred_ms:.3f} ms ({speedups[0]:.4f}x) against "
              f"the measured {fused_ms:.3f} ms ({speedups[1]:.4f}x)")
-    return {"device": name, "shape": f"train_4k, micro-batch {TRAIN_BATCH}, bf16",
+    B = batch["tokens"].shape[0]
+    return {"device": name, "shape": f"train_4k, micro-batch {B}, {cfg.dtype}",
             "graph": graph,
             "baseline": {"simulated_ms": sim_ms, "measured_ms": base_ms,
                          "measured_runs_ms": [meas["per-leaf"], meas["per-leaf 2"]],
@@ -1261,7 +1444,17 @@ def whatif_phase(cfg, name: str, kernels: list, traces: Path) -> dict:
             "fused_optimizer": {"predicted_ms": pred_ms, "measured_ms": fused_ms,
                                 "error": err, "predicted_speedup": speedups[0],
                                 "measured_speedup": speedups[1],
-                                "predicted_fused_task_ms": fused_task_ms}}
+                                "predicted_fused_task_ms": fused_task_ms},
+            "by_layer_ms": by_layer_ms}
+
+
+def _ms_by_layer_phase(graph) -> dict:
+    """Device ms of a step graph by "layer phase" (layer None: unmapped)."""
+    out = {}
+    for t in graph.lane_tasks(DEVICE_STREAM):
+        key = f"{t.layer} {t.phase}"
+        out[key] = out.get(key, 0.0) + t.duration * 1e3
+    return out
 
 
 AMP_ROWS = [("attn fwd", lambda t: t.layer == "attn" and t.phase == "fwd"),
@@ -2365,6 +2558,433 @@ def faults_phase(cfg, name: str, kernels: list, tmp: Path) -> dict:
             "phase_s": time.perf_counter() - t0}
 
 
+def moe_phase(name: str, kernels: list, rows: list) -> dict:
+    """The moe family on the card (moonshot-v1-16b-a3b, random weights from
+    seed 0): served at full width and depth in bf16, the 2-layer model
+    through the kernels against their plain versions in float32, trained
+    at MOE_TRAIN_LAYERS layers, and Daydream's FusedAdam case on that step.
+    Every tinyllama tensor is freed first.  ``rows`` are the kernels timed
+    at its shapes (``moe_kernel_phase``), given their launches here.
+    Returns the ``moe`` JSON object."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(MOE_ARCH)
+    n = count_params(cfg)
+    hd = cfg.head_dim or cfg.d_model // cfg.n_heads
+    kv = 2 * cfg.n_layers * cfg.n_kv_heads * hd * 2
+    print(f"moe: {cfg.name}: {n:,} parameters x 2 B = {2 * n / 1e9:.2f} GB of bf16 "
+          f"weights (the routers float32: +{4 * cfg.n_layers * cfg.d_model * cfg.n_experts / 1e9:.3f} GB "
+          f"more); KV cache {kv:,} B per token; device memory still allocated "
+          f"before the phase {held:.3f} GB (need <= {MOE_HELD_GB})")
+    if held > MOE_HELD_GB:
+        fail(f"{held:.3f} GB of earlier phases' tensors still on the card")
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab, n_)],
+                    max_new_tokens=NEW_TOKENS) for n_ in PROMPT_LENS]
+    seq = torch.tensor(rng.integers(1, cfg.vocab, (len(reqs), max(PROMPT_LENS) + 1)),
+                       device=DEV)
+    serve, serve_counts = _moe_serve(cfg, reqs, kv)
+    paths = _moe_paths(cfg.with_(n_layers=MOE_TRAIN_LAYERS, dtype="float32"),
+                       _prompt_tokens(reqs), seq)
+    tcfg = cfg.with_(n_layers=MOE_TRAIN_LAYERS)
+    train, train_counts = _moe_train(tcfg)
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in SyntheticLM(
+        cfg.vocab, TRAIN_SEQ, MOE_TRAIN_BATCH, seed=1).batch_at(0).items()}
+    daydream = fused_whatif(tcfg, name, kernels, batch, "moe_whatif")
+    daydream["by_layer_ms"] = _moe_layer_table(daydream["by_layer_ms"])
+    wall_ms = daydream["fused_optimizer"]["measured_ms"]
+    daydream["compiled"] = _moe_compiled(tcfg, wall_ms)
+    train["measure_wallclock"] = {
+        "step_ms": wall_ms, "mfu": train["flops_per_step"] / wall_ms / 1e-3 / PEAK_BF16_FLOPS}
+    print(f"moe: train mfu {train['mfu']:.4f} in Trainer.fit through Prefetcher "
+          f"({train['step_ms']:.1f} ms), {train['batches_made_before']['mfu']:.4f} on "
+          f"batches made before the loop ({train['batches_made_before']['step_ms']:.1f} "
+          f"ms), {train['measure_wallclock']['mfu']:.4f} for the fused step under "
+          f"measure_wallclock ({wall_ms:.3f} ms)")
+    for kern in kernels:        # the main path: the served and the trained run
+        kern["launches_by_path"]["moe"] = (serve_counts[kern["name"]]
+                                           + train_counts[kern["name"]])
+    for row in rows:
+        row["launches"] = serve_counts[row["name"]] + train_counts[row["name"]]
+    phase_s = time.perf_counter() - t0
+    print(f"moe: phase {phase_s:.1f}s")
+    return {"device": name, "config": f"{cfg.name}, random weights from seed 0",
+            "serve": serve, "paths": paths, "kernels": rows, "train": train,
+            "daydream": daydream, "phase_s": phase_s}
+
+
+def _prompt_tokens(reqs) -> torch.Tensor:
+    """The requests' prompts left-padded with 0 to the longest, as the
+    engine batches them."""
+    plen = max(len(r.prompt) for r in reqs)
+    toks = torch.zeros(len(reqs), plen, dtype=torch.long, device=DEV)
+    for i, r in enumerate(reqs):
+        toks[i, plen - len(r.prompt):] = torch.tensor(r.prompt)
+    return toks
+
+
+def _moe_serve(cfg, reqs, kv: int) -> tuple:
+    """``ServeEngine.generate`` at full width and depth: (JSON, launches)."""
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=DEV)
+    sync()
+    init_s = time.perf_counter() - t0
+    plen = max(PROMPT_LENS)
+    engine = ServeEngine(cfg, params, max_seq=plen + NEW_TOKENS, device=DEV)
+    engine.generate([Request(r.prompt, 2) for r in reqs])     # set-up, not counted
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    results = engine.generate(reqs)
+    counts = ops.launch_counts()
+    by_variant = dict(flash_kernel.launches_by_variant)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    st = engine.stats
+    steps = st["decode_steps"]
+    total = sum(len(r.tokens) for r in results)
+    want = {"flash_attention": L, "rmsnorm": (2 * L + 1) * (1 + steps),
+            "fused_adam": 0, "dgc_mask": 0}
+    want_variant = {"wgmma": L, "scalar": 0}
+    tok_s = total / (st["prefill_s"] + st["decode_s"])
+    print(f"moe: serve {cfg.name}, {L} layers, full width, bf16 (initialised in "
+          f"{init_s:.2f}s): {len(reqs)} requests, prompts {PROMPT_LENS} (left-padded "
+          f"to {plen}), {total} tokens; prefill {st['prefill_s'] * 1e3:.2f} ms, decode "
+          f"{st['decode_s'] / steps * 1e3:.3f} ms/token over {steps} steps, "
+          f"{tok_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB; launches "
+          f"{counts}, flash by kernel {by_variant} (need {want}, {want_variant})")
+    if counts != want or by_variant != want_variant:
+        fail(f"moe serve launch counts {counts} {by_variant} != {want} {want_variant}")
+    if not all(len(r.tokens) == NEW_TOKENS and all(0 <= t < cfg.vocab for t in r.tokens)
+               for r in results):
+        fail(f"bad generation {[r.tokens for r in results]}")
+
+    # device time of one prefill and one decode step, and the decode step's
+    # weight-read bound: the reference's decode dispatch runs every expert
+    # at capacity 1, so a step reads every weight but the embedding table,
+    # and the cache up to its position
+    model = build_model(cfg)
+    toks = _prompt_tokens(reqs)
+    with torch.inference_mode():
+        logits, _ = model.prefill(params, {"tokens": toks})
+        cache = init_cache(cfg, len(reqs), plen + 1, DEV)
+        dec_logits, _ = model.decode(params, cache, toks[:, :1], plen)
+        finite = bool(torch.isfinite(logits).all() and torch.isfinite(dec_logits).all())
+        pre_ms, pre_n, *_ = device_profile(lambda: model.prefill(params, {"tokens": toks}), 3)
+        dec_ms, dec_n, _, top, *_ = device_profile(
+            lambda: model.decode(params, cache, toks[:, :1], plen), 5)
+    weight_b = 2 * (count_params(cfg) - cfg.vocab * cfg.d_model)
+    cache_b = len(reqs) * (plen + 1) * kv
+    bound_ms = (weight_b + cache_b) / PEAK_BYTES * 1e3
+    host_pre, host_dec = st["prefill_s"] * 1e3, st["decode_s"] / steps * 1e3
+    print(f"moe: serve device time per prefill {pre_ms:.3f} ms over {pre_n:.0f} ops "
+          f"(busy {pre_ms / host_pre:.1%} of {host_pre:.2f} ms); per decode step "
+          f"{dec_ms:.3f} ms over {dec_n:.0f} ops (busy {dec_ms / host_dec:.1%} of "
+          f"{host_dec:.3f} ms); the decode step's read bound {bound_ms:.3f} ms "
+          f"({weight_b / 1e9:.2f} GB of weights, every expert, + {cache_b / 1e9:.3f} GB "
+          f"of cache at 3.35e12 B/s): device {dec_ms / bound_ms:.2f}x, host "
+          f"{host_dec / bound_ms:.2f}x it; logits finite {finite} (need True)")
+    print("moe: serve largest device ms per decode step by op: "
+          + "; ".join(f"{nm} {t:.3f}" for t, nm in top))
+    if not finite:
+        fail("moe serve logits are not finite")
+    del engine, params, model, cache, logits, dec_logits
+    torch.cuda.empty_cache()
+    return ({"layers": L, "params": count_params(cfg), "prompts": PROMPT_LENS,
+             "new_tokens": NEW_TOKENS, "init_s": init_s,
+             "prefill_ms": host_pre, "decode_ms_per_token": host_dec,
+             "tokens_per_s": tok_s, "peak_gb": peak_gb,
+             "device_prefill_ms": pre_ms, "device_decode_ms": dec_ms,
+             "device_ops": {"prefill": pre_n, "decode": dec_n},
+             "decode_bound_ms": bound_ms, "launches": counts,
+             "launches_by_variant": by_variant}, counts)
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    """``ops.flash_attention`` and ``ops.rmsnorm`` replaced by their plain
+    versions (``kernels/ref.py``) while the block runs: the model's plain
+    path on CUDA tensors, which launches no kernel."""
+    saved = ops.flash_attention, ops.rmsnorm
+    ops.flash_attention = (lambda q, k, v, causal=True, **_:
+                           ref.flash_attention_ref(q, k, v, causal=causal))
+    ops.rmsnorm = ref.rmsnorm_ref
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.rmsnorm = saved
+
+
+@contextlib.contextmanager
+def _recording_routes(store: list):
+    """Each ``moe._route`` call's (expert indices, aux loss) appended to
+    ``store`` while the block runs."""
+    plain = moe_layer._route
+
+    def spy(*args):
+        gate, idx, aux = plain(*args)
+        store.append((idx, aux))
+        return gate, idx, aux
+
+    moe_layer._route = spy
+    try:
+        yield
+    finally:
+        moe_layer._route = plain
+
+
+def _moe_paths(cfg, toks, seq) -> dict:
+    """The float32 model at MOE_TRAIN_LAYERS layers (attention projections
+    rescaled, as the serve phase does): its prefill through the kernels
+    against the same through their plain versions, then decode against a
+    fresh prefill at the config's capacity (printed: the last token arrives
+    last in each expert and is dropped where one is full) and with no drop
+    possible (capacity factor E / top_k: gated at the reference's MoE
+    tolerance)."""
+    params = init_params(cfg, seed=0, device=DEV)
+    _rescale_attention(cfg, params)
+    model = build_model(cfg)
+    kernel_routes, plain_routes = [], []
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        with _recording_routes(kernel_routes):
+            got, _ = model.prefill(params, {"tokens": toks})
+        sync()
+        counts = ops.launch_counts()
+        with _plain_kernels(), _recording_routes(plain_routes):
+            want, _ = model.prefill(params, {"tokens": toks})
+        sync()
+    plain_counts = ops.launch_counts()
+    same = sum(int((a == b).sum()) for (a, _), (b, _) in zip(kernel_routes, plain_routes))
+    share = same / sum(a.numel() for a, _ in kernel_routes)
+    err = max_err(got, want)
+    rel = err / want.abs().max().item()
+    L = cfg.n_layers
+    need = {"flash_attention": L, "rmsnorm": 2 * L + 1, "fused_adam": 0, "dgc_mask": 0}
+    print(f"moe: {L} layers, float32, prefill of {tuple(toks.shape)}: kernel path "
+          f"against plain path: {share:.6f} of {sum(a.numel() for a, _ in kernel_routes)} "
+          f"expert indices equal (need >= {MOE_ROUTE_SHARE}), logits max abs err "
+          f"{err:.3g}, {rel:.3g} of their largest magnitude (need <= {MOE_LOGITS_RTOL}); "
+          f"launches {counts} then {plain_counts} (need {need}, then unchanged)")
+    if share < MOE_ROUTE_SHARE or not rel <= MOE_LOGITS_RTOL:
+        fail("the moe model's kernel path disagrees with its plain path")
+    if counts != need or plain_counts != counts:
+        fail(f"moe kernel-path launches {counts}, {plain_counts} != {need}")
+    out = {"layers": L, "dtype": "float32", "equal_expert_share": share,
+           "logits_max_abs_err": err, "logits_rel_err": rel}
+    no_drop = cfg.n_experts / cfg.top_k
+    for cf, gated in ((cfg.capacity_factor, False), (no_drop, True)):
+        finite, top1, rel = _decode_vs_prefill(cfg.with_(capacity_factor=cf), params, seq)
+        print(f"moe: {L} layers, float32, capacity factor {cf:.4g}: decode vs prefill at "
+              f"S={seq.shape[1] - 1}: top-1 agreement {top1:.3f}, relative max error "
+              f"{rel:.3g}, finite {finite} (need >= {MOE_TOP1}, < {MOE_REL}, True"
+              + (")" if gated else "; printed, not gated)"))
+        if gated and not (finite and top1 >= MOE_TOP1 and rel < MOE_REL):
+            fail("moe decode disagrees with prefill where no slot can drop")
+        out[f"decode_vs_prefill_cf_{cf:.4g}"] = {"top1": top1, "rel_err": rel,
+                                                 "gated": gated}
+    del params, model, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_kernel_phase() -> list:
+    """Flash attention and RMSNorm at the moe model's serve and train shapes,
+    fused_adam over its 2-layer parameters: checked, timed, bounds.  Run
+    early, beside the kernel phase: late in a run, torch.profiler sessions
+    of a few short kernels came back with no device record at all."""
+    cfg = get_config(MOE_ARCH).with_(n_layers=MOE_TRAIN_LAYERS)
+    batch, seq = len(PROMPT_LENS), max(PROMPT_LENS)
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    n2 = count_params(cfg)
+    rows = [{"name": "flash_attention", "path": "serve prefill",
+             **_flash_entry(gen, cfg, batch, seq)},
+            {"name": "flash_attention", "path": "train",
+             **_flash_entry(gen, cfg, MOE_TRAIN_BATCH, TRAIN_SEQ)},
+            {"name": "rmsnorm", "path": "serve prefill", **_rms_entry(gen, cfg, batch * seq)},
+            {"name": "rmsnorm", "path": "train",
+             **_rms_entry(gen, cfg, MOE_TRAIN_BATCH * TRAIN_SEQ)},
+            {"name": "fused_adam", "path": "train", **_adam_entry(gen, n2)}]
+    for r in rows:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        print(f"kernels: moe {r['name']} at {r['shape']} ({r['path']}): {r['ms']:.5f} ms "
+              f"device, bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{r['share_of_bound']:.1%}), plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms']:.5f} ms, max abs err {r['max_abs_err']:.3g}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _moe_train(cfg) -> tuple:
+    """``Trainer.fit(AdamW(fused=True))`` on ``SyntheticLM`` batches of one
+    sequence of TRAIN_SEQ, through ``Prefetcher`` and then again on the same
+    batches made before the loop: one warm-up and 3 timed steps each,
+    launches exact per step; one step's loss split into cross-entropy and
+    aux, every gradient finite, the router's and each expert's nonzero;
+    ``moe_ffn`` forward and backward at the train shape with syncs made
+    errors.  (JSON, launches)."""
+    L, S, B = cfg.n_layers, TRAIN_SEQ, MOE_TRAIN_BATCH
+    n2, active = count_params(cfg), active_params(cfg)
+    n4 = count_params(cfg.with_(n_layers=4))
+    print(f"moe: train {cfg.name} at {L} layers, full width: {n2:,} parameters, "
+          f"{active:,} active per token; the fused step holds 2 B params + 2 B grads "
+          f"+ 8 B m, v + 8 B flat p, g = 20 B x {n2:,} = {20 * n2 / 1e9:.1f} GB "
+          f"before activations (4 layers: {20 * n4 / 1e9:.1f} GB), so depth "
+          f"{L} is the cut")
+    per_step = {"flash_attention": L, "rmsnorm": 2 * L + 1, "fused_adam": 1,
+                "dgc_mask": 0}
+    per_variant = {"wgmma": L, "scalar": 0}
+    step_counts, step_variants = [], []
+    H, D = cfg.n_heads, cfg.head_dim or cfg.d_model // cfg.n_heads
+    attn_flops = 3 * 4 * D * (B * H * S * (S + 1) // 2) * L
+    flops = 6 * active * B * S + attn_flops
+
+    def hook(i, metrics):
+        step_counts.append(ops.launch_counts())
+        step_variants.append(dict(flash_kernel.launches_by_variant))
+        ops.reset_launch_counts()
+
+    def fit(batches, how: str) -> tuple:
+        trainer = Trainer(cfg, TrainerConfig(steps=TRAIN_STEPS, log_every=0, seed=0),
+                          optimizer=AdamW(fused=True), device=DEV)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.fit(batches, hooks=hook)
+        log = trainer.metrics_log
+        step_s = float(np.mean([m["step_time_s"] for m in log[1:]]))
+        out = {"losses": [m["loss"] for m in log], "step_ms": step_s * 1e3,
+               "tokens_per_s": B * S / step_s, "mfu": flops / step_s / PEAK_BF16_FLOPS,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        print(f"moe: train {how}: steps " + ", ".join(
+            f"{m['step']}: loss {m['loss']:.4f} {m['step_time_s'] * 1e3:.1f} ms" for m in log)
+              + f" (step 0 the warm-up); step {out['step_ms']:.1f} ms (mean of steps 1-"
+              f"{len(log) - 1}, host clock ending in a sync), {out['tokens_per_s']:.1f} "
+              f"tokens/s, mfu {out['mfu']:.4f} ((6 x active params x tokens + causal "
+              f"attention {attn_flops:.3g}) / step / 989e12); peak device memory "
+              f"{out['peak_gb']:.2f} GB")
+        if not all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"]) for m in log):
+            fail("non-finite loss or grad norm in moe training")
+        return state, out
+
+    # Prefetcher's thread makes the next batches while the step is issued,
+    # both on one GIL; the second run, on batches made before the loop, shows
+    # what that thread costs the step (ROADMAP C20)
+    data = SyntheticLM(cfg.vocab, S, B, seed=0)
+    ops.reset_launch_counts()
+    state, prefetched = fit(Prefetcher(iter(data)), "through Prefetcher")
+    del state
+    state, made = fit(iter([data.batch_at(i) for i in range(TRAIN_STEPS)]),
+                      "on batches made before the loop")
+    print(f"moe: train launches per step {step_counts}, flash by kernel "
+          f"{step_variants} (need {per_step}, {per_variant} each)")
+    if (len(step_counts) != 2 * TRAIN_STEPS or any(c != per_step for c in step_counts)
+            or any(v != per_variant for v in step_variants)):
+        fail(f"moe train launch counts {step_counts} {step_variants}")
+    run_counts = {k: sum(c[k] for c in step_counts) for k in per_step}
+
+    params = state["params"]
+    del state
+    batch = {k: torch.from_numpy(v).to(DEV) for k, v in data.batch_at(TRAIN_STEPS).items()}
+    routes = []
+    with _recording_routes(routes):
+        loss, grads = loss_and_grads(cfg, params, batch)
+    with torch.no_grad():
+        ce = loss_fn(cfg.with_(aux_loss_coef=0.0), params, batch)
+    aux = [float(a.detach()) for _, a in routes]
+    term = float(loss) - float(ce)
+    want_term = cfg.aux_loss_coef * sum(aux) / L
+    named = _named(grads)
+    dead = [k for k, g in named.items() if not (torch.isfinite(g).all() and (g != 0).any())]
+    idle = [f"{k}[{e}]" for k, g in named.items() if k.split(".")[-1] in
+            ("w_gate", "w_up", "w_down") for e in range(g.shape[0])
+            if not (g[e] != 0).any()]
+    routers = {k: str(g.dtype)[6:] for k, g in named.items() if k.endswith("router")}
+    print(f"moe: train loss {float(loss):.4f} = cross-entropy {float(ce):.4f} + "
+          f"{term:.6f}, the aux term {cfg.aux_loss_coef} x {sum(aux):.4f} / {L} = "
+          f"{want_term:.6f} (aux per block {', '.join(f'{a:.4f}' for a in aux)}; 1.0 is "
+          f"a balanced router); {len(named)} gradient leaves, {len(dead)} not finite "
+          f"or all zero, {len(idle)} experts with an all-zero gradient (need 0, 0), "
+          f"router gradients {routers}")
+    if not (all(np.isfinite(aux)) and len(aux) == L and abs(term - want_term) <= 1e-4):
+        fail(f"moe loss {float(loss)} does not carry its aux term {want_term}")
+    if dead or idle:
+        fail(f"moe gradients missing: {dead} {idle}")
+    del grads, named, loss
+
+    # moe_ffn forward and backward at the train shape: a device -> host
+    # sync anywhere in them raises (the layer has no data-dependent shape)
+    lp = params["blocks"][0]["moe"]
+    x = randn(torch.Generator(device=DEV).manual_seed(3), B, S, cfg.d_model,
+              dtype=torch.bfloat16).requires_grad_()
+    sync()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out, a = moe_layer.moe_ffn(lp, x, top_k=cfg.top_k,
+                                   capacity_factor=cfg.capacity_factor)
+        (out.float().square().mean() + a).backward()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    sync()
+    print(f"moe: moe_ffn forward and backward at {tuple(x.shape)} under "
+          f"torch.cuda.set_sync_debug_mode('error'): no sync")
+    del params, x, out, a, lp
+    torch.cuda.empty_cache()
+    return ({"layers": L, "params": n2, "active_params": active, "batch": B,
+             "seq": S, **prefetched, "batches_made_before": made, "flops_per_step": flops,
+             "launches_per_step": per_step,
+             "loss": {"total": term + float(ce), "cross_entropy": float(ce),
+                      "aux_per_block": aux}}, run_counts)
+
+
+MOE_ROWS = [("attention", lambda k: k.startswith("attn ")),
+            ("moe (routed experts)", lambda k: k.startswith("moe ")),
+            ("moe (shared experts)", lambda k: k.startswith("mlp ")),
+            ("norm", lambda k: k.startswith("norm ")),
+            ("loss", lambda k: k.startswith("loss ")),
+            ("embed", lambda k: k.startswith("embed ")),
+            ("update", lambda k: k.startswith("update ")),
+            ("unmapped", lambda k: k.startswith("None "))]
+
+
+def _moe_layer_table(by: dict) -> dict:
+    """The traced and predicted device ms by layer (forward + backward), as
+    MOE_ROWS groups them; printed."""
+    table = {row: {kind: sum(v for k, v in by[kind].items() if pick(k))
+                   for kind in ("traced", "predicted")} for row, pick in MOE_ROWS}
+    print("moe: device ms by layer, traced per-leaf step / fused_optimizer "
+          "predicted: " + "; ".join(f"{row} {v['traced']:.3f} / {v['predicted']:.3f}"
+                                    for row, v in table.items()))
+    if table["moe (routed experts)"]["traced"] <= 0:
+        fail("no moe layer in the traced step")
+    return table
+
+
+def _moe_compiled(cfg, measured_ms: float) -> dict:
+    """``perf_report.trace_cell``: the same fused step (1 x TRAIN_SEQ) on meta
+    tensors, priced by H100_SXM; its kernel tasks gated, its simulated step
+    against the measured one printed."""
+    t0 = time.perf_counter()
+    bundle = perf_report.trace_cell(cfg, SHAPES["train_4k"])
+    trace_s = time.perf_counter() - t0
+    dev = bundle.graph.lane_tasks(DEVICE_STREAM)
+    L = cfg.n_layers
+    kernel_tasks = {k: sum(t.attrs.get("kernel") == k for t in dev)
+                    for k in ("flash_attention", "rmsnorm", "fused_adam", "dgc_mask")}
+    need = {"flash_attention": L, "rmsnorm": 2 * L + 1, "fused_adam": 1, "dgc_mask": 0}
+    sim_ms = bundle.simulate().makespan * 1e3
+    moe_ms = sum(t.duration for t in dev if t.layer == "moe") * 1e3
+    print(f"moe: trace_cell (meta tensors) in {trace_s:.1f}s: {len(dev)} device "
+          f"tasks, kernel tasks {kernel_tasks} (need {need}), moe layer {moe_ms:.3f} ms; "
+          f"simulated {sim_ms:.3f} ms against the measured fused step "
+          f"{measured_ms:.3f} ms: {sim_ms / measured_ms:.4f} (printed, not gated)")
+    if kernel_tasks != need or moe_ms <= 0:
+        fail(f"moe compiled route: kernel tasks {kernel_tasks} != {need} or no moe layer")
+    return {"trace_s": trace_s, "device_tasks": len(dev), "kernel_tasks": kernel_tasks,
+            "simulated_ms": sim_ms, "moe_layer_ms": moe_ms,
+            "ratio_to_measured": sim_ms / measured_ms}
+
+
 def _bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     """One bf16 ulp at |x|: 2^(exponent - 8), frexp's mantissa in [0.5, 1)."""
     return torch.ldexp(torch.ones_like(x), torch.frexp(x)[1] - 8)
@@ -2389,7 +3009,8 @@ def dgc_entry(g) -> dict:
             "source": "src/repro_torch/csrc/dgc_topk.cu",
             "replaces": "src/repro/kernels/dgc_topk.py:27",
             "max_abs_err": max_err(got, want),
-            **timings(lambda: ops.dgc_mask(g, thr), lambda: ref.dgc_mask_ref(g, thr),
+            **timings(f"dgc_mask n={g.numel()}",
+                      lambda: ops.dgc_mask(g, thr), lambda: ref.dgc_mask_ref(g, thr),
                       lambda: torch.where(g.abs() >= thr, g, 0)),
             "library_call": "torch.where(g.abs() >= thr, g, 0), without the count",
             **bound(*kernel_cost.dgc_mask(g.numel(), itemsize=g.element_size()),
@@ -2435,18 +3056,29 @@ def _consistency(cfg, params, reqs, results, seq):
     """Each generated token against a fresh prefill of the tokens before it,
     and decode step S's logits against a fresh prefill of S + 1 tokens."""
     model = build_model(cfg)
-    plen = max(len(r.prompt) for r in reqs)
     with torch.inference_mode():
-        toks = torch.zeros(len(reqs), plen, dtype=torch.long, device=DEV)
-        for i, r in enumerate(reqs):
-            toks[i, plen - len(r.prompt):] = torch.tensor(r.prompt)
+        toks = _prompt_tokens(reqs)
         gen = torch.tensor([r.tokens for r in results], device=DEV)
         agree = []
         for t in range(gen.shape[1]):
             logits, _ = model.prefill(params, {"tokens": torch.cat([toks, gen[:, :t]], 1)})
             agree.append((logits.argmax(-1) == gen[:, t]).float().mean().item())
         teacher = float(np.mean(agree))
-        S = seq.shape[1] - 1
+    finite, top1, rel = _decode_vs_prefill(cfg, params, seq)
+    text = (f"share of the {gen.numel()} generated tokens equal to a fresh "
+            f"prefill's argmax {teacher:.4f}; decode vs prefill at S={seq.shape[1] - 1}: "
+            f"top-1 agreement {top1:.3f}, relative max error {rel:.3g}, finite "
+            f"{finite} (need >= 0.5, >= 0.5, < 0.05, True)")
+    return text, finite and teacher >= 0.5 and top1 >= 0.5 and rel < 0.05
+
+
+def _decode_vs_prefill(cfg, params, seq) -> tuple:
+    """(finite, top-1 agreement, relative max error) of decode step S's
+    logits, on the prefill of ``seq[:, :S]``, against a fresh prefill of
+    ``seq`` (S + 1 tokens)."""
+    model = build_model(cfg)
+    S = seq.shape[1] - 1
+    with torch.inference_mode():
         full, _ = model.prefill(params, {"tokens": seq})
         _, prefix = model.prefill(params, {"tokens": seq[:, :S]})
         cache = init_cache(cfg, seq.shape[0], S + 1, DEV)
@@ -2457,11 +3089,7 @@ def _consistency(cfg, params, reqs, results, seq):
         finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
         top1 = (a.argmax(-1) == b.argmax(-1)).float().mean().item()
         rel = ((a - b).abs().max() / (a.abs().max() + 1e-6)).item()
-    text = (f"share of the {gen.numel()} generated tokens equal to a fresh "
-            f"prefill's argmax {teacher:.4f}; decode vs prefill at S={S}: top-1 "
-            f"agreement {top1:.3f}, relative max error {rel:.3g}, finite "
-            f"{finite} (need >= 0.5, >= 0.5, < 0.05, True)")
-    return text, finite and teacher >= 0.5 and top1 >= 0.5 and rel < 0.05
+    return finite, top1, rel
 
 
 def _tree_map(fn, tree):
@@ -2493,6 +3121,7 @@ def main() -> None:
     prime_profiler()
     cfg = get_config(ARCH)
     kernels = kernel_phase(cfg, len(PROMPT_LENS), max(PROMPT_LENS))
+    moe_rows = moe_kernel_phase()
     n_params = serve_phase(cfg, kernels)
     kernels += adam_dgc_phase(n_params)
     train_phase(cfg, kernels, n_params)
@@ -2504,13 +3133,15 @@ def main() -> None:
         launch = launch_phase(cfg, name, kernels, traces, handoff, amp)
         del handoff
         faults = faults_phase(cfg, name, kernels, traces)
+    moe = moe_phase(name, kernels, moe_rows)
     serving = serving_phase()   # last: no profiled phase follows its launches
     for kern in kernels:    # the count from this slice's main path, or its own
         paths = kern["launches_by_path"]
         paths["serving"] = serving["launches"][kern["name"]]
         kern["launches"] = paths["launch"] or paths.get("dgc", 0)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "call_ms", "shape",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "profiler",
+            "call_ms", "shape",
             "launches_by_path", "launches_per_train_step"]
     extra = ["scalar_ms", "scalar_max_abs_err", "share_of_bound", "ratio_to_library",
              "scalar_source", "launches_by_variant", "train_shape", "library_call"]
@@ -2522,6 +3153,7 @@ def main() -> None:
     print(json.dumps({"faults": faults}))
     print(json.dumps({"serving": serving}))
     print(json.dumps({"launch": launch}))
+    print(json.dumps({"moe": moe}))
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,8 +21,8 @@ from typing import Dict, List, Tuple
 
 from repro_torch.models.model import ModelConfig
 
-# the dense archs whose model the port builds
-ARCHS = ["tinyllama-1.1b", "llama3.2-1b", "llama3-405b"]
+# the archs whose model the port builds (families dense and moe)
+ARCHS = ["tinyllama-1.1b", "llama3.2-1b", "llama3-405b", "moonshot-v1-16b-a3b"]
 
 
 def fold_name(arch: str) -> str:

@@ -25,9 +25,10 @@ from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 from repro_torch import resolve_device
-from repro_torch.models.model import ModelConfig, _check_supported, torch_dtype
+from repro_torch.models.model import ModelConfig, _check_supported, init_params
 from repro_torch.optim import opt_state
 
 
@@ -42,25 +43,28 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(a, dtype=dtype, device=device)
 
 
-def _split_layers(cfg: ModelConfig, tree: Dict[str, Any], dtype: torch.dtype,
-                  device) -> Dict[str, Any]:
-    """A params-shaped tree (blocks stacked) as tensors of ``dtype``, blocks
-    unstacked."""
+def _split_layers(cfg: ModelConfig, tree: Dict[str, Any], dtype, device
+                  ) -> Dict[str, Any]:
+    """A params-shaped tree (blocks stacked) as tensors, blocks unstacked:
+    every leaf in ``dtype``, or, where ``dtype`` is a params-shaped tree of
+    dtypes (blocks a list), each leaf in its own."""
     _check_supported(cfg)
     dev = resolve_device(device)
 
-    def conv(sub, layer=None):
+    def conv(sub, dt, layer=None):
         """``sub`` as tensors; ``layer`` picks one slice of a stacked leaf."""
         if isinstance(sub, dict):
-            return {k: conv(v, layer) for k, v in sub.items()}
+            return {k: conv(v, dt[k] if isinstance(dt, dict) else dt, layer)
+                    for k, v in sub.items()}
         a = sub if isinstance(sub, torch.Tensor) else np.asarray(sub)
-        return _tensor(a if layer is None else a[layer], dtype, dev)
+        return _tensor(a if layer is None else a[layer], dt, dev)
 
     n = tree["blocks"]["ln1"]["scale"].shape[0]
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} stacked layers, config {cfg.n_layers}")
-    out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = [conv(tree["blocks"], i) for i in range(n)]
+    block_dt = dtype["blocks"][0] if isinstance(dtype, dict) else dtype
+    out = conv({k: v for k, v in tree.items() if k != "blocks"}, dtype)
+    out["blocks"] = [conv(tree["blocks"], block_dt, i) for i in range(n)]
     return out
 
 
@@ -92,9 +96,11 @@ def _numpy(tree):
 
 def params_from_jax(cfg: ModelConfig, tree: Dict[str, Any], device="cuda"
                     ) -> Dict[str, Any]:
-    """A params tree (or a params-shaped one, such as gradients) in the
-    config's dtype."""
-    return _split_layers(cfg, tree, torch_dtype(cfg), device)
+    """A params tree (or a params-shaped one, such as gradients), each leaf
+    in the dtype ``init_params`` gives it: the config's, but float32 for a
+    MoE router, as in the reference."""
+    dtypes = tree_map(lambda t: t.dtype, init_params(cfg, device="meta"))
+    return _split_layers(cfg, tree, dtypes, device)
 
 
 def opt_state_from_jax(cfg: ModelConfig, state: Dict[str, Any], device="cuda"
@@ -143,8 +149,8 @@ def state_to_reference(cfg: ModelConfig, state: Dict[str, Any]
 def state_from_reference(cfg: ModelConfig, tree: Dict[str, Any],
                          device="cuda") -> Dict[str, Any]:
     """The reference's trainer state (numpy or tensors) as the port's, on
-    ``device``: params in the config's dtype, the AdamW state flat-backed
-    (``AdamW.apply_fused`` updates those buffers in place)."""
+    ``device``: params in their ``init_params`` dtypes, the AdamW state
+    flat-backed (``AdamW.apply_fused`` updates those buffers in place)."""
     dev = resolve_device(device)
     step = tree["step"]
     step = (step.to(device=dev, dtype=torch.int32) if isinstance(step, torch.Tensor)

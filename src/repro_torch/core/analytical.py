@@ -20,8 +20,9 @@ shapes:
 * a matrix product (``aten::mm``/``addmm``/``bmm``/``baddbmm``) has
   2·M·N·K FLOPs and is tagged ``attrs["opcode"] = "dot"``, as HLO graphs tag
   theirs, so the AMP what-if classes it as the reference does;
-* a copy, gather, concatenation or fill (``MEMORY_OPS``) is a ``MEMORY``
-  task that moves bytes only;
+* a copy, gather, scatter (the MoE layer's dispatch and combine),
+  concatenation or fill (``MEMORY_OPS``) is a ``MEMORY`` task that moves
+  bytes only;
 * any other operator is ``COMPUTE`` with one FLOP per element of its
   largest input.
 
@@ -48,7 +49,8 @@ from .task import DEVICE_STREAM, HOST_THREAD, Task, TaskKind
 MEMORY_OPS = frozenset("aten::" + n for n in (
     "copy_", "_to_copy", "clone", "cat", "stack", "index_select", "embedding",
     "gather", "scatter", "scatter_", "scatter_add", "scatter_add_", "index",
-    "index_put_", "fill_", "zero_", "zeros", "zeros_like", "ones", "ones_like",
+    "index_put", "index_put_", "_index_put_impl_", "index_add", "index_add_",
+    "fill_", "zero_", "zeros", "zeros_like", "ones", "ones_like",
     "full", "full_like", "new_zeros", "new_ones", "new_full", "arange",
     "scalar_tensor", "repeat", "slice_scatter", "select_scatter",
     "constant_pad_nd", "flip", "roll"))

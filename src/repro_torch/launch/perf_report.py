@@ -29,7 +29,8 @@ nothing is allocated.  The report then
 Meshes are not ported, so the traced program has no collectives
 (``collective_s`` is 0): ``--cluster N`` and ``--what-if ddp,...`` insert
 them as on every other route, and ``--mesh multi`` raises.  Only train
-shapes of data-parallel (``layout="dp"``) configs are traced.
+shapes of data-parallel (``layout="dp"``) configs, and of moe configs (all
+experts on the device), are traced.
 
 Trace-import route (no trace of a model): import per-worker profiler
 captures (torch.profiler captures of the port's step, Chrome trace-event
@@ -78,11 +79,14 @@ def trace_cell(cfg, shape, chips: int = CHIPS, cost=None):
     """``trace_compiled`` of one device's train step at ``shape`` on meta
     tensors: ``make_train_step(cfg, AdamW(fused=True))`` on a batch of
     ``global_batch // chips`` sequences (the data-parallel program each of
-    ``chips`` devices runs).  Returns the :class:`TraceBundle`."""
+    ``chips`` devices runs).  A moe config's expert-parallel layout ("v2")
+    is traced as that data-parallel program with every expert on the
+    device: the reference's expert all-to-all is not in it (ROADMAP C16).
+    Returns the :class:`TraceBundle`."""
     if shape.kind != "train":
         raise SystemExit(f"the compiled route traces train steps only; "
                          f"{shape.name} is a {shape.kind} shape")
-    if cfg.layout != "dp":
+    if cfg.layout != "dp" and not (cfg.family == "moe" and cfg.layout == "v2"):
         raise SystemExit(f"layout {cfg.layout!r} shards the step over a mesh, "
                          f"which is not ported yet (ROADMAP A10); the "
                          f"compiled route traces layout='dp' only")

@@ -1,5 +1,5 @@
 """ModelConfig and the model API (counterpart of ``repro/models/model.py``),
-for the dense family:
+for the dense and moe families:
 
     init_params(cfg, seed, device)          -> params (meta: shapes only)
     loss_fn(cfg, params, batch)             -> scalar loss          (train)
@@ -12,9 +12,9 @@ for the dense family:
 
 Params are the reference's tree with ``blocks`` a list of per-layer dicts
 (the reference stacks them on a leading axis).  Caches are a list of
-``{"k", "v"}`` tensors of shape ``(B, S, K, hd)``, one per layer.  Other
-families, local-attention windows, attention biases and LayerNorm raise
-``NotImplementedError``.
+``{"k", "v"}`` tensors of shape ``(B, S, K, hd)``, one per layer.  The
+other families, local-attention windows, attention biases and LayerNorm
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -97,10 +97,21 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
+# family -> (block_init, block_apply, block_decode, block_prefill); both
+# families keep the dense KV cache (``init_cache``)
+_FAMILY = {
+    "dense": (T.dense_block_init, T.dense_block_apply, T.dense_block_decode,
+              T.dense_block_prefill),
+    "moe": (T.moe_block_init, T.moe_block_apply, T.moe_block_decode,
+            T.moe_block_prefill),
+}
+
+
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family not in _FAMILY:
         raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet (dense only)")
+            f"family {cfg.family!r} is not ported yet (ported: "
+            f"{', '.join(_FAMILY)})")
     for unported, name in ((cfg.window, "window"), (cfg.attn_bias, "attn_bias"),
                            (cfg.norm != "rmsnorm", f"norm={cfg.norm!r}")):
         if unported:
@@ -109,6 +120,12 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 def torch_dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
+
+
+def _n_blocks(cfg: ModelConfig) -> int:
+    """Blocks in the stack: one per layer in the ported families (the
+    reference's hybrid groups and encoder-decoder come with those families)."""
+    return cfg.n_layers
 
 
 # -------------------------------------------------------------------- init
@@ -127,7 +144,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
     if not cfg.tie_embeddings:
         p["unembed"] = {"table": normal_param(gen, (cfg.vocab, cfg.d_model), dt,
                                               scale=0.02)}
-    p["blocks"] = [T.dense_block_init(cfg, gen, dt) for _ in range(cfg.n_layers)]
+    binit = _FAMILY[cfg.family][0]
+    p["blocks"] = [binit(cfg, gen, dt) for _ in range(_n_blocks(cfg))]
     return p
 
 
@@ -143,7 +161,7 @@ def active_params(cfg: ModelConfig) -> int:
     total = count_params(cfg)
     if cfg.n_experts and cfg.top_k:
         per_expert = 3 * cfg.d_model * cfg.d_ff_expert
-        inactive = (cfg.n_experts - cfg.top_k) * per_expert * cfg.n_layers
+        inactive = (cfg.n_experts - cfg.top_k) * per_expert * _n_blocks(cfg)
         total -= inactive
     return total
 
@@ -172,15 +190,20 @@ def _unembed_params(cfg: ModelConfig, p: Params) -> Params:
 
 def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
             ) -> torch.Tensor:
-    """batch["tokens"], batch["labels"]: (B, S) [, "mask"] -> mean token CE."""
+    """batch["tokens"], batch["labels"]: (B, S) [, "mask"] -> mean token CE
+    (plus ``aux_loss_coef`` times the blocks' mean MoE aux loss)."""
     x = embed(p["embed"], batch["tokens"].long())
     S = x.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=x.device), T.head_dim(cfg),
                            cfg.rope_theta)
-    h = rmsnorm(p["final_norm"], T.run_stack(cfg, p["blocks"], x, cos, sin))
-    return softmax_cross_entropy_chunked(_unembed_params(cfg, p), h,
+    x, aux = T.run_stack(cfg, p["blocks"], x, _FAMILY[cfg.family][1], cos, sin)
+    h = rmsnorm(p["final_norm"], x)
+    loss = softmax_cross_entropy_chunked(_unembed_params(cfg, p), h,
                                          batch["labels"], batch.get("mask"),
                                          chunk=cfg.loss_chunk)
+    if cfg.n_experts:
+        loss = loss + cfg.aux_loss_coef * aux / max(_n_blocks(cfg), 1)
+    return loss
 
 
 def loss_and_grads(cfg: ModelConfig, p: Params,
@@ -202,7 +225,8 @@ def prefill_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
     S = x.shape[1]
     cos, sin = rope_angles(torch.arange(S, device=x.device), T.head_dim(cfg),
                            cfg.rope_theta)
-    x, caches = T.run_stack_prefill(cfg, p["blocks"], x, cos, sin)
+    x, caches = T.run_stack_prefill(cfg, p["blocks"], x, _FAMILY[cfg.family][3],
+                                    cos, sin)
     h = rmsnorm(p["final_norm"], x)
     return _last_logits(cfg, p, h[:, -1]), caches
 
@@ -212,7 +236,8 @@ def decode_fn(cfg: ModelConfig, p: Params, cache: List[Params],
               ) -> Tuple[torch.Tensor, List[Params]]:
     """tokens: (B, 1) at position ``pos``; writes the caches in place."""
     x = embed(p["embed"], tokens)
-    x, new_caches = T.run_stack_decode(cfg, p["blocks"], cache, x, pos)
+    x, new_caches = T.run_stack_decode(cfg, p["blocks"], cache, x,
+                                       _FAMILY[cfg.family][2], pos)
     h = rmsnorm(p["final_norm"], x)
     return _last_logits(cfg, p, h[:, -1]), new_caches
 

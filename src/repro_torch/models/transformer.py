@@ -1,6 +1,8 @@
-"""Dense (GQA) transformer blocks and the layer loops (counterpart of the
-dense family of ``repro/models/transformer.py``).
+"""Dense (GQA) and MoE transformer blocks and the layer loops (counterpart
+of the dense and moe families of ``repro/models/transformer.py``).
 
+Each family provides (init, train-apply, decode-apply, prefill) with a
+uniform signature, as in the reference; ``model.py`` picks them by family.
 The reference stacks layers on a leading axis and drives them with
 ``lax.scan``; here ``blocks`` is a list of per-layer dicts and the loop is a
 Python loop.
@@ -8,12 +10,13 @@ Python loop.
 
 from __future__ import annotations
 
-from typing import Dict, List, Tuple
+from typing import Dict, List, Tuple, Union
 
 import torch
 
 from .attention import gqa_attend, gqa_decode, gqa_init
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
+from .moe import moe_ffn, moe_init
 
 Params = Dict[str, object]
 
@@ -33,10 +36,11 @@ def dense_block_init(cfg, gen: torch.Generator, dtype) -> Params:
 
 
 def dense_block_apply(cfg, p: Params, x: torch.Tensor, cos, sin
-                      ) -> torch.Tensor:
-    """The training forward of one block (no cache)."""
+                      ) -> Tuple[torch.Tensor, float]:
+    """The training forward of one block (no cache): (x, aux loss), the aux
+    loss 0.0, a number, so the dense step runs no operator for it."""
     x = x + gqa_attend(p["attn"], rmsnorm(p["ln1"], x), cos, sin, causal=True)
-    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x), activation=cfg.activation)
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x), activation=cfg.activation), 0.0
 
 
 def dense_block_prefill(cfg, p: Params, x: torch.Tensor, cos, sin
@@ -57,30 +61,76 @@ def dense_block_decode(cfg, p: Params, x: torch.Tensor, cache: Params, pos: int
     return x, cache
 
 
-def run_stack(cfg, blocks: List[Params], x: torch.Tensor, cos, sin
-              ) -> torch.Tensor:
-    """Run the layers in order (training forward).  The reference's ``remat``
-    knob has no effect: autograd keeps every layer's activations."""
+# --------------------------------------------------------------------- MoE
+def moe_block_init(cfg, gen: torch.Generator, dtype) -> Params:
+    return {
+        "ln1": rmsnorm_init(gen, cfg.d_model, dtype),
+        "attn": gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                         head_dim(cfg), dtype),
+        "ln2": rmsnorm_init(gen, cfg.d_model, dtype),
+        "moe": moe_init(gen, cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
+                        cfg.top_k, cfg.n_shared_experts, dtype),
+    }
+
+
+def _moe(cfg, p: Params, x: torch.Tensor):
+    return moe_ffn(p["moe"], rmsnorm(p["ln2"], x), top_k=cfg.top_k,
+                   capacity_factor=cfg.capacity_factor,
+                   activation=cfg.activation)
+
+
+def moe_block_apply(cfg, p: Params, x: torch.Tensor, cos, sin
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = x + gqa_attend(p["attn"], rmsnorm(p["ln1"], x), cos, sin, causal=True)
+    h, aux = _moe(cfg, p, x)
+    return x + h, aux
+
+
+def moe_block_prefill(cfg, p: Params, x: torch.Tensor, cos, sin
+                      ) -> Tuple[torch.Tensor, Params]:
+    a, cache = gqa_attend(p["attn"], rmsnorm(p["ln1"], x), cos, sin,
+                          causal=True, return_cache=True)
+    x = x + a
+    return x + _moe(cfg, p, x)[0], cache
+
+
+def moe_block_decode(cfg, p: Params, x: torch.Tensor, cache: Params, pos: int
+                     ) -> Tuple[torch.Tensor, Params]:
+    a, cache = gqa_decode(p["attn"], rmsnorm(p["ln1"], x), cache, pos,
+                          cfg.rope_theta)
+    x = x + a
+    return x + _moe(cfg, p, x)[0], cache
+
+
+# ------------------------------------------------------------ layer loops
+def run_stack(cfg, blocks: List[Params], x: torch.Tensor, apply_fn, cos, sin
+              ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
+    """Run the layers in order (training forward): (x, summed aux loss).
+    The sum is a tensor where the blocks return one, else 0.0.  The
+    reference's ``remat`` knob has no effect: autograd keeps every layer's
+    activations."""
+    aux = 0.0
     for lp in blocks:
-        x = dense_block_apply(cfg, lp, x, cos, sin)
-    return x
+        x, a = apply_fn(cfg, lp, x, cos, sin)
+        aux = a if isinstance(aux, float) else aux + a
+    return x, aux
 
 
-def run_stack_prefill(cfg, blocks: List[Params], x: torch.Tensor, cos, sin
-                      ) -> Tuple[torch.Tensor, List[Params]]:
+def run_stack_prefill(cfg, blocks: List[Params], x: torch.Tensor, prefill_fn,
+                      cos, sin) -> Tuple[torch.Tensor, List[Params]]:
     """Run the layers in order, collecting each layer's K/V cache."""
     caches = []
     for lp in blocks:
-        x, cache = dense_block_prefill(cfg, lp, x, cos, sin)
+        x, cache = prefill_fn(cfg, lp, x, cos, sin)
         caches.append(cache)
     return x, caches
 
 
 def run_stack_decode(cfg, blocks: List[Params], caches: List[Params],
-                     x: torch.Tensor, pos: int
+                     x: torch.Tensor, decode_fn, pos: int
                      ) -> Tuple[torch.Tensor, List[Params]]:
     new_caches = []
     for lp, cache in zip(blocks, caches):
-        x, cache = dense_block_decode(cfg, lp, x, cache, pos)
+        x, cache = decode_fn(cfg, lp, x, cache, pos)
         new_caches.append(cache)
     return x, new_caches

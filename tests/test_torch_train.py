@@ -319,6 +319,47 @@ class TestData:
         b = SyntheticLM(97, 64, 8, noise=0.0).batch_at(0)
         np.testing.assert_array_equal((5 * b["tokens"] + 131) % 97, b["labels"])
 
+    # (vocab, seq_len, batch, seed, step, noise): the tinyllama and moonshot
+    # vocabularies at the train length; vocabularies where numpy's bounded
+    # integers redraw 7% and 2% of their draws (2**32 % vocab is large);
+    # vocabularies of 2 and 3; no flips and only flips; a vocabulary where
+    # the reference's int32 arithmetic wraps (its own loop is run)
+    @pytest.mark.parametrize("case", [
+        (32000, 4096, 1, 0, 0, 0.05), (163840, 4096, 1, 1, 5, 0.05),
+        (400_000_001, 1000, 3, 2, 9, 0.05), (100_000_007, 200, 7, 3, 3, 0.5),
+        (2, 50, 5, 0, 0, 0.05), (3, 33, 1, 4, 2, 0.05),
+        (97, 64, 8, 0, 0, 0.0), (1000, 64, 4, 0, 1, 1.0),
+        (2 ** 30, 40, 2, 0, 0, 0.3)])
+    def test_batches_equal_reference(self, case):
+        vocab, seq, batch, seed, step, noise = case
+        got = SyntheticLM(vocab, seq, batch, seed, noise=noise).batch_at(step)
+        want = jax_data.SyntheticLM(vocab, seq, batch, seed, noise=noise).batch_at(step)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+
+    def test_batch_draws_in_bulk(self, monkeypatch):
+        """A batch of 4096 positions makes no per-position numpy draw (the
+        reference's loop makes 8193): the prefetch thread holds the GIL
+        for milliseconds, not for a Python loop over the sequence."""
+        calls = []
+        real = np.random.default_rng
+
+        class Counting:
+            def __init__(self, seed):
+                self._rng = real(seed)
+                self.bit_generator = self._rng.bit_generator
+
+            def __getattr__(self, name):
+                calls.append(name)
+                return getattr(self._rng, name)
+
+        monkeypatch.setattr(np.random, "default_rng", Counting)
+        SyntheticLM(32000, 4096, 1).batch_at(0)
+        assert calls == []
+        jax_data.SyntheticLM(32000, 64, 1).batch_at(0)
+        assert len(calls) == 1 + 2 * 64
+
 
 class TestOptim:
     """Port of tests/test_substrate.py::TestOptim, each against the JAX
