@@ -16,11 +16,15 @@
    kernel, its plain version and one PyTorch library call timed at the
    main-path shapes: device time from torch.profiler (``ms``; its raw
    record count and unscaled time kept beside it), held against the device
-   time from CUDA events with the host's launches hidden behind a sleep
-   kernel (``event_ms``), and time per back-to-back call from CUDA events
+   time from CUDA events on the same calls, with the host's launches hidden
+   behind a sleep kernel (``event_ms``; ``event_ms_apart`` the same with no
+   profiler on), and time per back-to-back call from CUDA events
    (``call_ms``, host launch cost included); flash attention's CUDA-core kernel timed on the same inputs
-   as its tensor-core kernel; then flash attention, RMSNorm and fused_adam
-   checked and timed at the moe model's shapes (phase 11's);
+   as its tensor-core kernel; flash attention with v's own head dim (q/k up
+   to 192, v up to 128) over its sweep and gradients; then flash attention
+   checked and timed at deepseek-v2-236b's MLA shapes beside SDPA (phase
+   12's), and flash attention, RMSNorm and fused_adam at the moe model's
+   shapes (phase 11's);
 4. serve: tinyllama-1.1b at full width in bf16 from a seeded generator, four
    requests of 128-512 prompt tokens and 32 new tokens each through
    ``ServeEngine.generate``, with the kernels' launch counts read around that
@@ -97,21 +101,24 @@
    a restore into a fresh trainer (``restore_or_init``, ``like`` on meta
    tensors), bit-equal with flat-backed moments, and its next step against
    two live ones (bit-equal where the step is deterministic, else within
-   their spread; launches exact).  The checkpoint cost fitted (least
-   squares, latency >= 0) to the saves as a run makes them (a write, then
-   the oldest checkpoint deleted) and the restores, at full depth and at 4
-   layers (3 of each there), printed beside ``H100_SXM``'s default.  Then a drill at 4 layers,
-   predicted first: the step traced (``trace_measured``), a
-   ``FaultScenario`` with the fitted cost, no detection, repair or restart
-   time, and one fail-stop where the drill injects it; the wall time at
-   which the committed steps reach 16, for the baseline (a save every 4
-   steps) and ``ckpt_interval:steps=2``.  Then ``FaultTolerantRunner``
+   their spread; launches exact).  Then a drill at 4 layers, in each of 3
+   rounds predicted first and then run: the checkpoint operations the
+   drills perform sampled at 4 layers (saves that only write, saves that
+   also delete the oldest, a restore), the checkpoint cost fitted (weighted
+   least squares, latency >= 0) to them and to the full depth's save as a
+   run makes it (a write, then the oldest deleted) and restore, each kind
+   weighted by its share of each gated drill's operations, printed beside
+   ``H100_SXM``'s default; the step traced (``trace_measured``) once, a
+   ``FaultScenario`` with the round's fitted cost, no detection, repair or
+   restart time, and one fail-stop where the drill injects it; the wall
+   time at which the committed steps reach 16, for the baseline (a save
+   every 4 steps) and ``ckpt_interval:steps=2``.  Then ``FaultTolerantRunner``
    runs each drill (16 steps on ``SyntheticLM.batch_at(i)``, one failure
    before step 10, restores through ``CheckpointManager``), and once
    without a failure: one restart each, launches exact per executed step,
    final states equal to the uninterrupted one, the baseline within 10%
-   and the what-if within 16% of their measured wall times (medians of 3
-   rounds); last
+   and the what-if within 16% of their measured wall times (the medians of
+   the 3 rounds' errors); last
    ``python -m repro_torch.launch.goodput`` on the drill step's capture;
 11. moe: the moe family, moonshot-v1-16b-a3b, after every tinyllama tensor
    is freed (the memory still allocated printed and gated).  Served at full
@@ -134,7 +141,21 @@
    6's gates) with a device-ms table by layer, then ``perf_report.trace_cell``
    of the fused step on meta tensors (2 / 5 / 1 kernel tasks), its
    simulated step printed against the measured one;
-12. serving: the serving simulator (``repro_torch.serving``) fitted to the
+12. deepseek: the mla_moe family, deepseek-v2-236b, after every earlier
+   tensor is freed (gated, and the free memory against the weights).
+   Served at full width and 8 of its 60 layers in bf16 (65.65 GB of
+   weights; depth the only cut) as in phase 11: launch counts exact (8
+   flash per prefill, all on the tensor-core kernel at q/k head dim 192
+   and v head dim 128, 33 RMSNorm per forward: ln1, q_norm, kv_norm, ln2
+   per layer and the final norm), device time against the decode step's
+   read bound.  At 2 layers in float32: phase 11's paths and gates.
+   Forward and backward at full width and 2 layers, 1 x 4096 (no
+   optimizer: its state does not fit), launches exact, the loss split
+   into cross-entropy and aux, every gradient finite and nonzero; that
+   step traced, simulated and held within 10% of its measured time; then
+   ``perf_report.trace_cell`` of the whole 60-layer train_4k step on meta
+   tensors (printed);
+13. serving: the serving simulator (``repro_torch.serving``) fitted to the
    engine and checked against it at full width, last, so that no profiled
    phase follows its launches.  ``measure_serving_costs`` of llama3.2-1b
    once, and of tinyllama-1.1b in each of ``SERVING_ROUNDS`` rounds, at 4
@@ -148,11 +169,12 @@
    error within 16%; both speedups above 1, the baseline measured in every
    third round); the serve phase's mixed prompts predicted and measured
    (printed); launch counts read around the whole phase, exact;
-13. the card's name and power limit again (the limit the run ended under),
+14. the card's name and power limit again (the limit the run ended under),
    the ``whatif``, ``amp``, ``traceio``, ``faults``, ``serving``, ``launch``,
-   ``moe`` and ``kernels`` JSON lines (each kernel's ``launches`` from the launch
-   phase's measured steps, DGC's from its own path), then the last line
-   ``{"ok": true, "device": {...}}``.
+   ``moe``, ``deepseek``, ``phase_s`` (each phase's seconds, also printed as
+   it ends) and ``kernels`` JSON lines (each kernel's ``launches`` from the
+   launch phase's measured steps, DGC's from its own path), then the last
+   line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
 without the repository's ``src`` beside this file, it fails at once.
@@ -239,6 +261,14 @@ FLASH_SMALL = [(1, 4, 2, S, D) for D in (16, 32, 96) for S in (1, 7, 64)]
 # bf16 inputs that the CUDA-core kernel takes: D % 8 != 0, and rows padded to
 # D + 4 elements (an S stride that is no multiple of 8)
 FLASH_SCALAR_BF16 = [((1, 4, 2, 100, 12), 0), ((2, 4, 1, 96, 64), 4)]
+# q/k and v of their own head dims (B, H, KH, S, D, Dv): MLA's 192 and 128
+# (the tensor-core kernel's (192, 128) bucket, 2 K/V stages), its smoke
+# config's 24 and 16, and the buckets' edges; forward, and the gradients
+# through FlashAttentionFn at FLASH_MLA_GRAD
+FLASH_MLA = [(1, 4, 4, 300, 192, 128), (2, 8, 2, 130, 192, 128), (1, 4, 4, 64, 24, 16),
+             (1, 4, 2, 200, 192, 16), (1, 4, 4, 100, 24, 128), (1, 2, 2, 1, 192, 128),
+             (1, 4, 4, 257, 136, 128)]
+FLASH_MLA_GRAD = [(1, 4, 4, 256, 192, 128), (1, 4, 2, 96, 24, 16)]
 RMS_SWEEP = [(4, 64), (3, 5, 300), (16, 1024), (1, 7)]
 ADAM_SWEEP = [100, 1024, 5000, 1 << 14]
 DGC_SWEEP = [((100,), 0.1), ((123, 45), 0.01), ((4096,), 0.001)]
@@ -274,15 +304,21 @@ PROFILER_OPS, PROFILER_ROUNDS = 2000, 5
 LAUNCH_SHAPE, LAUNCH_CHIPS = "train_4k", 256
 LAUNCH_RUNS = 3                      # measure_wallclock calls of WHATIF_ITERS steps
 CLI_TIMEOUT_S = 400
-# faults phase: one synchronous save after CKPT_STEPS steps at full depth
-# (and at the drills' depth, for the fit); drills of DRILL_STEPS steps at
+# faults phase: one synchronous save after CKPT_STEPS steps at full depth;
+# drills of DRILL_STEPS steps of DRILL_BATCH x TRAIN_SEQ tokens at
 # DRILL_LAYERS layers (a 3.69 GB checkpoint each time, where full depth
 # writes 13.2 GB), a save every DRILL_EVERY steps, one failure injected
 # before step DRILL_FAIL, restarted at once (no backoff); the what-if saves
-# every WHATIF_EVERY steps; the median of DRILL_ROUNDS rounds is gated
+# every WHATIF_EVERY steps; the median of DRILL_ROUNDS rounds is gated.
+# The checkpoint cost is fitted before the drills to SAMPLE_WINDOWS samples
+# of their operations.  The mount's pace moves from one drill to the next by
+# ~7% and a sample does not foresee it (ROADMAP C10): a drill's step of 6
+# sequences makes its checkpoints ~60% of its wall time, not ~82% at 2
 CKPT_STEPS = 3
-FIT_SAMPLES = 3                      # saves and restores at the drills' depth
+DRILL_KEEP = 3                       # the drills' manager keeps CheckpointManager's default
 DRILL_LAYERS, DRILL_STEPS, DRILL_EVERY, DRILL_FAIL = 4, 16, 4, 10
+DRILL_BATCH = 6
+SAMPLE_WINDOWS = 2
 WHATIF_EVERY = 2
 DRILL_BACKOFF_S = 0.0
 DRILL_ROUNDS = 3
@@ -298,8 +334,9 @@ WHATIF_NEW = 64                      # new tokens per request
 WHATIF_REQUESTS, WHATIF_SLOTS = 8, 8 # one static batch of 8 against two of 4
 # The engine is host-bound, and the host's pace on the card's machine drifts
 # by 10-20% over seconds (PERF.md, serving): each round's fit predicts the
-# runs next to it, and the gates read the median of 11 rounds' errors
-SERVING_ROUNDS = 11
+# runs next to it, and the gates read the median of the rounds' errors (11
+# rounds until the deepseek phase needed the time)
+SERVING_ROUNDS = 5
 # moe phase: moonshot-v1-16b-a3b served at full width and depth, and trained
 # at MOE_TRAIN_LAYERS layers (20 B per parameter for the fused step: 2 layers
 # are 36.9 GB, 4 would be 59.8 GB before activations), one sequence of
@@ -314,6 +351,15 @@ MOE_TRAIN_LAYERS, MOE_TRAIN_BATCH = 2, 1
 MOE_ROUTE_SHARE, MOE_LOGITS_RTOL = 0.999, 1e-3
 MOE_TOP1, MOE_REL = 0.5, 0.15
 MOE_HELD_GB = 2.0                    # device memory allowed to outlive the phases before
+# deepseek phase: deepseek-v2-236b (MLA + MoE) at full width, served at
+# DEEPSEEK_SERVE_LAYERS of its 60 layers (7.944 GB of bf16 a layer; 8 layers
+# and the embeddings are 65.65 GB) and run forward and backward at
+# DEEPSEEK_TRAIN_LAYERS layers; the free device memory must exceed the
+# served weights by DEEPSEEK_MARGIN_GB.  The 2-layer float32 paths take the
+# moe phase's gates
+DEEPSEEK_ARCH = "deepseek-v2-236b"
+DEEPSEEK_SERVE_LAYERS, DEEPSEEK_TRAIN_LAYERS = 8, 2
+DEEPSEEK_MARGIN_GB = 6.0
 # device timing: a torch.profiler session with no device record is run again,
 # up to PROFILE_TRIES sessions; a kernel row's profiler time must lie within
 # PROFILE_TOL of its CUDA-event time, less PROFILE_GAP_MS per device operation
@@ -368,6 +414,35 @@ class Profile(NamedTuple):
     unscaled_ms: float   # the records' device time over the calls made
 
 
+def _device_records(prof) -> list:
+    """The device operations of a torch.profiler session: the model's
+    record_function scopes also show as spans on the device timeline
+    (gpu_user_annotation), and they are no device work."""
+    return [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def _scaled(ops_: list, iters: int, host_ms: float) -> Profile:
+    """Each op name's time per call from ``iters`` calls' records: its
+    recorded mean times its records over ``iters``, rounded up (see
+    ``device_profile``)."""
+    us = sum(e.time_range.elapsed_us() for e in ops_)
+    by_name = {}
+    for e in ops_:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
+    per_call = {name: math.ceil(n / iters) for name, (n, _) in by_name.items()}
+    us_call = {name: t / n * per_call[name] for name, (n, t) in by_name.items()}
+    n_ops = sum(per_call.values())
+    if n_ops * iters != len(ops_):
+        print(f"device_profile: {len(ops_)} device records over {iters} calls, not "
+              f"{n_ops} per call: each op's time per call is its recorded mean x its "
+              f"calls")
+    top = sorted(((t / 1e3, n[:70]) for n, t in us_call.items()), reverse=True)[:8]
+    return Profile(sum(us_call.values()) / 1e3, max(1, n_ops), host_ms, top,
+                   len(ops_), us / iters / 1e3)
+
+
 def device_profile(fn, iters: int = 20, warmup: int = 3) -> Profile:
     """The CUDA kernels and copies that torch.profiler records over ``iters``
     calls of ``fn``, after ``warmup`` calls, and the host clock over them
@@ -391,30 +466,11 @@ def device_profile(fn, iters: int = 20, warmup: int = 3) -> Profile:
                 fn()
             sync()
             host = time.perf_counter() - t0
-        # the model's record_function scopes also show as spans on the device
-        # timeline (gpu_user_annotation): they are no device work
-        ops_ = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-                and not e.is_user_annotation]
-        us = sum(e.time_range.elapsed_us() for e in ops_)
-        if us > 0:
-            break
+        ops_ = _device_records(prof)
+        if sum(e.time_range.elapsed_us() for e in ops_) > 0:
+            return _scaled(ops_, iters, host / iters * 1e3)
         print(f"device_profile: session {attempt} of {PROFILE_TRIES} recorded no device time")
-    else:
-        fail("torch.profiler recorded no device time")
-    by_name = {}
-    for e in ops_:
-        n, t = by_name.get(e.name, (0, 0.0))
-        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us())
-    per_call = {name: math.ceil(n / iters) for name, (n, _) in by_name.items()}
-    us_call = {name: t / n * per_call[name] for name, (n, t) in by_name.items()}
-    n_ops = sum(per_call.values())
-    if n_ops * iters != len(ops_):
-        print(f"device_profile: {len(ops_)} device records over {iters} calls, not "
-              f"{n_ops} per call: each op's time per call is its recorded mean x its "
-              f"calls")
-    top = sorted(((t / 1e3, n[:70]) for n, t in us_call.items()), reverse=True)[:8]
-    return Profile(sum(us_call.values()) / 1e3, max(1, n_ops), host / iters * 1e3, top,
-                   len(ops_), us / iters / 1e3)
+    fail("torch.profiler recorded no device time")
 
 
 @functools.lru_cache(maxsize=None)
@@ -430,6 +486,20 @@ def _sleep_cycles_per_ms() -> float:
     return cycles / start.elapsed_time(end)
 
 
+def _host_queue_ms(fn, iters: int) -> tuple[float, float]:
+    """Host ms to queue ``iters`` calls of ``fn``, and to queue them and
+    sync, after 3 calls."""
+    for _ in range(3):
+        fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    queued = time.perf_counter() - t0
+    sync()
+    return queued * 1e3, (time.perf_counter() - t0) * 1e3
+
+
 def event_ms(fn, iters: int = 20) -> float:
     """Device ms per call of ``fn`` by CUDA events, with the host's launch
     cost hidden: a sleep kernel queued first holds the device until the host
@@ -437,14 +507,7 @@ def event_ms(fn, iters: int = 20) -> float:
     gaps between kernels included).  The sleep is twice the host time of
     ``iters`` calls ending in a sync, and four times longer again if the
     host was still queueing when it ended."""
-    for _ in range(3):
-        fn()
-    sync()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    sync()
-    sleep_ms = 2e3 * (time.perf_counter() - t0) + 1.0
+    sleep_ms = 2 * _host_queue_ms(fn, iters)[1] + 1.0
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     for _ in range(PROFILE_TRIES):
         torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms()))
@@ -462,6 +525,66 @@ def event_ms(fn, iters: int = 20) -> float:
          f"longer than the device's sleep")
 
 
+@functools.lru_cache(maxsize=None)
+def _sleep_names() -> frozenset:
+    """The names torch.profiler gives ``torch.cuda._sleep``'s kernel: ATen's
+    ``spin_kernel`` and whatever a session of three sleeps records."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            torch.cuda._sleep(1000)
+        sync()
+    return frozenset(e.name for e in _device_records(prof)) | {"spin_kernel"}
+
+
+def profiled_event_ms(fn, iters: int = 20) -> tuple[Profile, float]:
+    """``device_profile`` and ``event_ms`` of the same ``iters`` calls: one
+    torch.profiler session holds an event, the sleep kernel, the start event,
+    the calls and the end event, so the two clocks time the same executions.
+    Timed apart, they also timed the kernel's own drift from one window to
+    the next (flash attention at the MLA train shape on an H100: 1.99 ms in
+    one window, 1.88 ms in the next).  The sleep kernel's record
+    (``_sleep_names``) is left out of the profile.  Its host time is the time
+    to queue the calls.  The calls ran back to back only if the host had
+    queued them all, from the first event on, within the sleep as the events
+    time it: the profiler slows the host's launches (a Triton launch to
+    ~90 us beside an H100), and a sleep sized from the host's pace without
+    it once ended first.  So the sleep is 8 times that pace plus 4 ms, and a
+    session that fails this, or that has no device record, is run again (the
+    sleep four times longer), up to PROFILE_TRIES sessions."""
+    sleep_ms = 8 * _host_queue_ms(fn, iters)[0] + 4.0
+    cycles_per_ms = _sleep_cycles_per_ms()
+    _sleep_names()
+    first, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    for attempt in range(1, PROFILE_TRIES + 1):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            first.record()
+            torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            queued_ms = (time.perf_counter() - t0) * 1e3
+            end.synchronize()
+        slept_ms = first.elapsed_time(start)
+        ops_ = [e for e in _device_records(prof)
+                if not any(n in e.name for n in _sleep_names())]
+        if queued_ms >= slept_ms:
+            print(f"profiled_event_ms: session {attempt} of {PROFILE_TRIES}: the host took "
+                  f"{queued_ms:.3f} ms to queue {iters} calls, the device slept "
+                  f"{slept_ms:.3f} ms")
+            sleep_ms = 4 * max(sleep_ms, queued_ms)
+        elif sum(e.time_range.elapsed_us() for e in ops_) <= 0:
+            print(f"profiled_event_ms: session {attempt} of {PROFILE_TRIES} recorded no "
+                  f"device time")
+        else:
+            return _scaled(ops_, iters, queued_ms / iters), start.elapsed_time(end) / iters
+    fail(f"profiled_event_ms: no session of {PROFILE_TRIES} recorded the calls behind "
+         f"the sleep")
+
+
 def device_ms(fn, iters: int = 20) -> float:
     return device_profile(fn, iters).ms
 
@@ -469,18 +592,22 @@ def device_ms(fn, iters: int = 20) -> float:
 def timings(name: str, kernel, plain, library, iters: int = 20) -> dict:
     """The kernel's, its plain version's and the library call's device ms
     (torch.profiler) and ms per back-to-back call; the kernel's profiler
-    time held against its CUDA-event time (``event_ms``) within PROFILE_TOL,
-    less PROFILE_GAP_MS per device operation."""
-    prof, ev = device_profile(kernel, iters), event_ms(kernel, iters)
+    time held against CUDA events on the same calls (``profiled_event_ms``)
+    within PROFILE_TOL, less PROFILE_GAP_MS per device operation.  CUDA
+    events on other calls with no profiler on (``event_ms``) are printed and
+    kept beside them as ``event_ms_apart``."""
+    prof, ev = profiled_event_ms(kernel, iters)
+    apart = event_ms(kernel, iters)
     lo = ev * (1 - PROFILE_TOL) - PROFILE_GAP_MS * prof.ops
     hi = ev * (1 + PROFILE_TOL)
     print(f"kernels: {name}: torch.profiler {prof.ms:.5f} ms per call ({prof.records} "
           f"device records over {iters} calls of {prof.ops} ops, {prof.unscaled_ms:.5f} ms "
-          f"unscaled), CUDA events {ev:.5f} ms (need {lo:.5f} to {hi:.5f})")
+          f"unscaled), CUDA events on the same calls {ev:.5f} ms (need {lo:.5f} to "
+          f"{hi:.5f}), apart with no profiler {apart:.5f} ms")
     if not lo <= prof.ms <= hi:
         fail(f"{name}: torch.profiler's {prof.ms:.5f} ms per call disagrees with CUDA "
-             f"events' {ev:.5f} ms")
-    return {"ms": prof.ms, "event_ms": ev,
+             f"events' {ev:.5f} ms on the same calls")
+    return {"ms": prof.ms, "event_ms": ev, "event_ms_apart": apart,
             "profiler": {"records": prof.records, "calls": iters, "ops_per_call": prof.ops,
                          "unscaled_ms": prof.unscaled_ms},
             "plain_ms": device_ms(plain, 5),
@@ -542,15 +669,38 @@ def build_phase() -> None:
                 print(f"  ptxas {path.stem.split('-')[0]}:", line.strip()[:160])
 
 
+def _sdpa_backends(q, k, v) -> dict:
+    """Which of SDPA's backends take q, k, v (causal): backend -> "ran" or
+    "refused"."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    out = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([be]):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            out[be.name] = "ran"
+        except RuntimeError:
+            out[be.name] = "refused"
+    sync()
+    return out
+
+
 def _flash_entry(gen, cfg, batch: int, seq: int) -> dict:
     """Flash attention at a main-path shape, as the model passes it: bf16
-    (B, S, H, hd) views, causal; checked (the CUDA-core kernel too, called
-    directly), then both kernels, the plain version and SDPA timed."""
-    H, KH, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim or cfg.d_model // cfg.n_heads
+    (B, S, H, hd) views, causal, q/k and v of the config's head dims
+    (``perf_report.flash_head_dims``: MLA's 192 and 128); checked (the
+    CUDA-core kernel too, called directly), then both kernels, the plain
+    version and SDPA timed (where v has its own head dim, which of SDPA's
+    backends take it is printed)."""
+    H, KH = cfg.n_heads, cfg.n_kv_heads
+    D, Dv = perf_report.flash_head_dims(cfg)
     bf = torch.bfloat16
     q = randn(gen, batch, seq, H, D, dtype=bf).transpose(1, 2)
     k = randn(gen, batch, seq, KH, D, dtype=bf).transpose(1, 2)
-    v = randn(gen, batch, seq, KH, D, dtype=bf).transpose(1, 2)
+    v = randn(gen, batch, seq, KH, Dv, dtype=bf).transpose(1, 2)
+    # the rows of a single head dim keep the call they were first timed with
+    gqa = {"enable_gqa": True} if Dv == D else {}
     want = ref.flash_attention_ref(q, k, v)
     err = max_err(ops.flash_attention(q, k, v), want)
     scalar_err = max_err(flash_kernel.flash_attention_scalar(q, k, v), want)
@@ -563,14 +713,19 @@ def _flash_entry(gen, cfg, batch: int, seq: int) -> dict:
                        lambda: ops.flash_attention(q, k, v),
                        lambda: ref.flash_attention_ref(q, k, v),
                        lambda: F.scaled_dot_product_attention(
-                           q, k, v, is_causal=True, enable_gqa=True)),
+                           q, k, v, is_causal=True, **gqa)),
              "scalar_ms": device_ms(lambda: flash_kernel.flash_attention_scalar(q, k, v), 5),
              "scalar_max_abs_err": scalar_err,
-             **bound(*kernel_cost.flash_attention(batch, H, KH, seq, D, causal=True,
-                                                  itemsize=2)),
-             "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"}
+             **bound(*kernel_cost.flash_attention(batch, H, KH, seq, D, D_v=Dv,
+                                                  causal=True, itemsize=2)),
+             "shape": (f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal" if Dv == D
+                       else f"q/k {tuple(q.shape)} v {tuple(v.shape)} bf16 causal")}
     entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
     entry["ratio_to_library"] = entry["ms"] / entry["library_ms"]
+    if Dv != D:
+        entry["sdpa_backends"] = _sdpa_backends(q, k, v)
+        print(f"kernels: SDPA's backends at {entry['shape']}: {entry['sdpa_backends']} "
+              f"(the library row is SDPA's own choice)")
     print(f"kernels: flash at {entry['shape']}: tensor-core kernel {entry['ms']:.5f} ms "
           f"device ({entry['share_of_bound']:.1%} of its {entry['bound_ms']:.5f} ms bound, "
           f"by {entry['bound_by']}), CUDA-core kernel {entry['scalar_ms']:.5f} ms, SDPA "
@@ -579,33 +734,38 @@ def _flash_entry(gen, cfg, batch: int, seq: int) -> dict:
     return entry
 
 
-def _flash_inputs(gen, B, H, KH, S, D, dt, layout: str, pad: int = 0):
-    """q, k, v as (B, H, S, D): contiguous ("bhsd"), (B, S, H, D) tensors
-    viewed ("bshd"), or rows of D + pad elements cut to D ("padded")."""
+def _flash_inputs(gen, B, H, KH, S, D, dt, layout: str, pad: int = 0, Dv=None):
+    """q, k as (B, H|KH, S, D) and v as (B, KH, S, Dv) (Dv defaults to D):
+    contiguous ("bhsd"), (B, S, H, D) tensors viewed ("bshd"), or rows of
+    D + pad elements cut to D ("padded")."""
+    dims = ((H, D), (KH, D), (KH, D if Dv is None else Dv))
     if layout == "bshd":
-        return tuple(randn(gen, B, S, h, D, dtype=dt).transpose(1, 2) for h in (H, KH, KH))
-    return tuple(randn(gen, B, h, S, D + pad, dtype=dt)[..., :D] for h in (H, KH, KH))
+        return tuple(randn(gen, B, S, h, d, dtype=dt).transpose(1, 2) for h, d in dims)
+    return tuple(randn(gen, B, h, S, d + pad, dtype=dt)[..., :d] for h, d in dims)
 
 
 def flash_sweep(gen, shapes) -> float:
-    """Flash attention against its plain version over ``shapes`` in f32 and
-    bf16, causal and not, contiguous and as (B, S, H, D) views, and over the
-    bf16 inputs that the CUDA-core kernel takes; prints the kernel each case
-    took and fails unless f32 and those bf16 inputs took "scalar" and every
-    other bf16 input "wgmma".  Returns the largest error."""
+    """Flash attention against its plain version over ``shapes`` ((B, H, KH,
+    S, D) or (B, H, KH, S, D, Dv)) in f32 and bf16, causal and not,
+    contiguous and as (B, S, H, D) views, and over the bf16 inputs that the
+    CUDA-core kernel takes; prints the kernel each case took and fails
+    unless f32 and those bf16 inputs took "scalar" and every other bf16
+    input "wgmma".  Returns the largest error."""
     cases = [(s, dt, c, layout, 0) for dt in (torch.float32, torch.bfloat16)
              for c in (True, False) for s in shapes for layout in ("bhsd", "bshd")]
     cases += [(s, torch.bfloat16, c, "padded", pad) for s, pad in FLASH_SCALAR_BF16
               for c in (True, False)]
     worst, bad, took = 0.0, [], {}
-    for (B, H, KH, S, D), dt, causal, layout, pad in cases:
-        q, k, v = _flash_inputs(gen, B, H, KH, S, D, dt, layout, pad)
+    for (B, H, KH, S, D, *rest), dt, causal, layout, pad in cases:
+        Dv = rest[0] if rest else D
+        q, k, v = _flash_inputs(gen, B, H, KH, S, D, dt, layout, pad, Dv)
         variant = flash_kernel._variant(q, k, v)
-        want = "wgmma" if dt == torch.bfloat16 and D % 8 == 0 and pad % 8 == 0 else "scalar"
+        want = ("wgmma" if dt == torch.bfloat16 and D % 8 == 0 and Dv % 8 == 0
+                and pad % 8 == 0 else "scalar")
         err = max_err(ops.flash_attention(q, k, v, causal=causal),
                       ref.flash_attention_ref(q, k, v, causal=causal))
         worst = max(worst, err)
-        name = f"{(B, H, KH, S, D)} {str(dt)[6:]} causal={causal} {layout}"
+        name = f"{(B, H, KH, S, D, *rest)} {str(dt)[6:]} causal={causal} {layout}"
         took.setdefault(variant, []).append(name)
         if not (err <= FLASH_ATOL[dt] and variant == want):
             bad.append(f"flash {name}: {err} on {variant} (want {want})")
@@ -648,7 +808,10 @@ def kernel_phase(cfg, batch: int, seq: int) -> list:
     small = flash_sweep(gen, FLASH_SMALL)
     print(f"kernels: flash over bf16 and f32 D 16/32/96 x S 1/7/64: largest abs "
           f"error {small} (atol 2e-3 f32 / 3e-2 bf16)")
-    worst["flash_attention"] = max(worst["flash_attention"], small)
+    mla = flash_sweep(gen, FLASH_MLA)
+    print(f"kernels: flash with v's own head dim (q/k 24/136/192, v 16/128): "
+          f"largest abs error {mla} (atol 2e-3 f32 / 3e-2 bf16)")
+    worst["flash_attention"] = max(worst["flash_attention"], small, mla)
     for dt in (torch.float32, torch.bfloat16):
         for shape in RMS_SWEEP + [(batch * seq, cfg.d_model), (batch, 1, cfg.d_model),
                                   (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)]:
@@ -657,8 +820,21 @@ def kernel_phase(cfg, batch: int, seq: int) -> list:
             worst["rmsnorm"] = max(worst.get("rmsnorm", 0), err)
             if not err <= RMS_ATOL[dt]:
                 bad.append(f"rmsnorm {shape} {dt}: {err}")
+    # MLA's q_norm and kv_norm as deepseek's prefill runs them: q_lora
+    # columns, and kv_lora columns sliced from rows of kv_lora + qk_rope
+    ds = get_config(DEEPSEEK_ARCH)
+    g2 = torch.Generator(device=DEV).manual_seed(4)
+    for dt in (torch.float32, torch.bfloat16):
+        for cols, row in ((ds.q_lora, ds.q_lora), (ds.kv_lora, ds.kv_lora + ds.qk_rope)):
+            x = randn(g2, batch * seq, row, dtype=dt)[:, :cols]
+            w = randn(g2, cols, dtype=dt)
+            err = max_err(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
+            worst["rmsnorm"] = max(worst.get("rmsnorm", 0), err)
+            if not err <= RMS_ATOL[dt]:
+                bad.append(f"rmsnorm MLA {cols} of {row} columns {dt}: {err}")
     sync()
-    print(f"kernels: largest abs error over the sweeps {worst} "
+    print(f"kernels: largest abs error over the sweeps (RMSNorm also at MLA's "
+          f"q_norm and kv_norm) {worst} "
           f"(atol flash 2e-3 f32 / 3e-2 bf16, rmsnorm 1e-5 f32 / 5e-2 bf16)")
     if bad:
         fail("kernel disagrees with its plain version: " + "; ".join(bad))
@@ -690,12 +866,13 @@ def grad_phase(gen, train_flash, train_x) -> None:
     and at the train shapes (bf16, causal), within atol 5e-3 f32 / 5e-2 bf16
     plus one bf16 ulp of the reference (GRAD_RTOL)."""
     bf = torch.bfloat16
-    cases = [(s, dt, c) for s in FLASH_SWEEP for dt in (torch.float32, bf)
-             for c in (True, False)] + [(train_flash, bf, True)]
+    cases = [(s, dt, c) for s in FLASH_SWEEP + FLASH_MLA_GRAD
+             for dt in (torch.float32, bf) for c in (True, False)] + [(train_flash, bf, True)]
     worst, bad = {}, []
-    for (B, H, KH, S, D), dt, causal in cases:
+    for (B, H, KH, S, D, *rest), dt, causal in cases:
+        Dv = rest[0] if rest else D
         q, k, v, do = (randn(gen, *s, dtype=dt) for s in
-                       ((B, H, S, D), (B, KH, S, D), (B, KH, S, D), (B, H, S, D)))
+                       ((B, H, S, D), (B, KH, S, D), (B, KH, S, Dv), (B, H, S, Dv)))
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
         got = torch.autograd.grad(ops.flash_attention(*leaves, causal=causal), leaves, do)
         want = _autograd(lambda *a: ref.flash_attention_ref(*a, causal=causal),
@@ -1153,9 +1330,9 @@ def _batches(cfg, seq: int, batch: int, start: int = 0):
         step += 1
 
 
-def _device_batch(cfg, step: int) -> dict:
+def _device_batch(cfg, step: int, batch: int = TRAIN_BATCH) -> dict:
     return {k: torch.from_numpy(v).to(DEV) for k, v in
-            make_batch(cfg, seq_len=TRAIN_SEQ, batch=TRAIN_BATCH, step=step).items()}
+            make_batch(cfg, seq_len=TRAIN_SEQ, batch=batch, step=step).items()}
 
 
 def train_phase(cfg, kernels: list, n_params: int) -> None:
@@ -2240,10 +2417,10 @@ def _drill(cfg, trainer, directory: Path, every: int, fail_at) -> dict:
     each save's and restore's seconds (from a sync: the steps before them
     are not theirs), the launches, the steps executed and the final
     state."""
-    mgr = CheckpointManager(str(directory))
+    mgr = CheckpointManager(str(directory), keep=DRILL_KEEP)
     # made before the run: the drill times steps, checkpoints and restarts,
     # not the host's Python loop that generates a batch
-    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, TRAIN_BATCH)
+    data = SyntheticLM(cfg.vocab, TRAIN_SEQ, DRILL_BATCH)
     batches = [data.batch_at(i) for i in range(DRILL_STEPS)]
     like = state_to_reference(cfg, trainer.init_state("meta"))
     executed, fired, saves, restores = [], [], [], []
@@ -2295,6 +2472,46 @@ def _drill(cfg, trainer, directory: Path, every: int, fail_at) -> dict:
            "state": state}
     shutil.rmtree(directory)
     return out
+
+
+def _drill_ops(every: int, fails: bool = True) -> dict:
+    """The checkpoint operations of a drill that saves every ``every`` steps:
+    its manager keeps DRILL_KEEP checkpoints, so its first DRILL_KEEP saves
+    only write and each later one also deletes the oldest; it restores once
+    if it fails (the probe before step 0 finds nothing)."""
+    saves = DRILL_STEPS // every
+    return {"save": min(DRILL_KEEP, saves), "save + delete": max(0, saves - DRILL_KEEP),
+            "restore": int(fails)}
+
+
+def _ckpt_sample(cfg, trainer, directory: Path, like) -> dict:
+    """The kinds of checkpoint operation the drills perform, performed as
+    they perform them, apart from them: a fresh manager keeping DRILL_KEEP
+    checkpoints, as a drill's, saves DRILL_KEEP times DRILL_EVERY steps
+    apart (writes only) and DRILL_KEEP times WHATIF_EVERY steps apart
+    (each also deletes the oldest), then restores its latest, each timed
+    from a sync to a sync as ``_drill`` times them.  Returns the seconds by
+    kind, the checkpoint's bytes, and the last saved and the restored
+    state."""
+    mgr = CheckpointManager(str(directory), keep=DRILL_KEEP)
+    state = trainer.init_state()
+    out = {"save": [], "save + delete": [], "restore": []}
+    for j, every in enumerate([DRILL_EVERY] * DRILL_KEEP + [WHATIF_EVERY] * DRILL_KEEP):
+        for i in range(every):
+            state, _ = trainer.step_fn(state, _device_batch(cfg, i, DRILL_BATCH))
+        sync()
+        t0 = time.perf_counter()
+        mgr.save(j, state_to_reference(cfg, state))
+        sync()
+        out["save" if j < DRILL_KEEP else "save + delete"].append(time.perf_counter() - t0)
+    sync()
+    t0 = time.perf_counter()
+    tree, _ = mgr.restore_latest(like, device=DEV)
+    restored = state_from_reference(cfg, tree, DEV)
+    sync()
+    out["restore"].append(time.perf_counter() - t0)
+    return {"seconds": out, "bytes": _npy_bytes(directory / f"step_{latest_step(str(directory)):08d}"),
+            "saved": state, "restored": restored}
 
 
 def faults_phase(cfg, name: str, kernels: list, tmp: Path) -> dict:
@@ -2374,134 +2591,151 @@ def faults_phase(cfg, name: str, kernels: list, tmp: Path) -> dict:
     del trainer, state, fresh, restored, after, live, batch
     torch.cuda.empty_cache()
 
-    # 2. the checkpoint cost fitted at two sizes; the drill's step traced.
-    # A save of a run that checkpoints again and again writes one checkpoint
-    # and then deletes the oldest (keep-last-k): at full depth the write and
-    # a deletion timed apart, at the drills' depth FIT_SAMPLES saves of a
-    # manager keeping one, on a directory that holds one, timed whole
+    # 2. the drill's step traced, and the scenario it predicts from
     cfg4 = cfg.with_(n_layers=DRILL_LAYERS)
-    t4, state4, _ = _fit_and_save(cfg4, ck / "fit")
-    mgr = CheckpointManager(str(ck / "fit"), keep=1)
-    saves4 = []
-    for j in range(FIT_SAMPLES):
-        sync()
-        t1 = time.perf_counter()
-        mgr.save(CKPT_STEPS + j, state_to_reference(cfg4, state4))
-        saves4.append(time.perf_counter() - t1)
-    restores4 = []
-    for _ in range(FIT_SAMPLES):
-        _, restored4, t = _restore(cfg4, ck / "fit")
-        restores4.append(t)
-    bytes4 = _check_checkpoint(cfg4, state4, restored4, ck / "fit",
-                               f"{DRILL_LAYERS} layers")
-    shutil.rmtree(ck / "fit")
-    del state4
-    x = np.array([nbytes] * 2 + [bytes4] * 2 * FIT_SAMPLES, dtype=np.float64)
-    y = np.array([save_s + delete_s, restore_s] + saves4 + restores4)
-    slope, lat = np.polyfit(x, y, 1)
-    if lat < 0 or slope <= 0:
-        # the cost per byte grows with the size (or falls), which a latency
-        # >= 0 and a bandwidth cannot hold at both sizes: held at the
-        # drills' size (where a fit that holds passes too), with no latency
-        slope, lat = float(y[2:].mean() / bytes4), 0.0
-    holder = {"state": restored4}
-    batch4 = _device_batch(cfg4, 0)
+    t4 = Trainer(cfg4, TrainerConfig(log_every=0, seed=0), optimizer=AdamW(fused=True),
+                 device=DEV)
+    like4 = state_to_reference(cfg4, t4.init_state("meta"))
+    holder = {"state": t4.init_state()}
+    batch4 = _device_batch(cfg4, 0, DRILL_BATCH)
 
     def step():
         holder["state"], _ = t4.step_fn(holder["state"], batch4)
 
     (tmp / "faults").mkdir()
     bundle = trace_measured(step, device=DEV, save_to=str(tmp / "faults" / PT_TRACE))
-    del holder, restored4, batch4
+    del holder, batch4
     cost = CostModel(hw=H100_SXM)
     base = Scenario(graph=bundle.graph, cost=cost)
     default = RecoveryModel.from_scenario(base, params_tree=meta_full)
-    rec = dataclasses.replace(
+    rec0 = dataclasses.replace(
         RecoveryModel.from_scenario(base, params_tree=t4.init_state("meta")),
-        detection_s=0.0, repair_s=0.0, restart_s=DRILL_BACKOFF_S,
-        ckpt_bandwidth=1.0 / slope, ckpt_latency_s=float(lat))
-    fitted_full = nbytes * slope + lat
-    fit = {"points": [{"bytes": int(b), "seconds": float(t), "what": w} for b, t, w in
-                      zip(x, y, ["save + delete", "restore"]
-                          + ["save"] * FIT_SAMPLES + ["restore"] * FIT_SAMPLES)],
-           "ckpt_bandwidth": rec.ckpt_bandwidth, "ckpt_latency_s": rec.ckpt_latency_s,
-           "full_write_s": fitted_full, "default_full_write_s": default.checkpoint_write_s,
-           "default_ckpt_bandwidth": default.ckpt_bandwidth,
-           "ratio_to_default": fitted_full / default.checkpoint_write_s}
-    print(f"faults: {DRILL_LAYERS} layers ({bytes4 / 1e9:.3f} GB): saves (write, "
-          f"then the oldest deleted) " + ", ".join(f"{t:.3f}" for t in saves4)
-          + " s, restores " + ", ".join(f"{t:.3f}" for t in restores4)
-          + f" s; least squares over the saves and restores at both depths: "
-          f"ckpt_bandwidth {rec.ckpt_bandwidth / 1e9:.4f} GB/s, "
-          f"ckpt_latency_s {rec.ckpt_latency_s:.4f}; full-depth write {fitted_full:.3f} s "
-          f"against H100_SXM's default {default.checkpoint_write_s:.3f} s "
-          f"({nbytes / 1e9:.4f} GB / {default.ckpt_bandwidth / 1e9:.0f} GB/s + "
-          f"{default.ckpt_latency_s} s): ratio {fit['ratio_to_default']:.3f}")
-
-    # 3. the drill: predicted, then run and measured
-    scn = FaultScenario(graph=bundle.graph, cost=cost, recovery=rec,
+        detection_s=0.0, repair_s=0.0, restart_s=DRILL_BACKOFF_S)
+    scn = FaultScenario(graph=bundle.graph, cost=cost, recovery=rec0,
                         horizon_s=DRILL_HORIZON_S, ckpt_interval_steps=DRILL_EVERY,
                         timeline=FaultTimeline((), DRILL_HORIZON_S))
     steady = scn.baseline().makespan
-
-    def failing(every):
-        # the failure comes before step DRILL_FAIL: after DRILL_FAIL steps
-        # and the saves among them, on the simulated clock (1 us later, so
-        # that a save ending there commits)
-        at = DRILL_FAIL * steady + DRILL_FAIL // every * rec.checkpoint_write_s
-        return dataclasses.replace(scn, timeline=FaultTimeline(
-            (FaultEvent(at + 1e-6, "fail"),), DRILL_HORIZON_S))
-
-    predicted, preds = {}, {}
-    for label, scenario, spec in (
-            ("baseline", failing(DRILL_EVERY), "noop"),
-            ("ckpt_interval", failing(WHATIF_EVERY), f"ckpt_interval:steps={WHATIF_EVERY}"),
-            ("no_failure", scn, "noop")):
-        predicted[label], preds[label] = _progress_reaches(scenario, spec, DRILL_STEPS)
-    if preds["baseline"].steady_step_s != steady or bundle.simulate().makespan != steady:
+    if bundle.simulate().makespan != steady:
         fail("the fault scenario's steady step is not the traced step's makespan")
-    print(f"faults: predicted ({DRILL_STEPS} steps, traced steady step "
-          f"{steady * 1e3:.3f} ms, checkpoint write = restore "
-          f"{rec.checkpoint_write_s:.3f} s, failure before step {DRILL_FAIL}): "
-          + ", ".join(f"{k} {v:.3f} s ({preds[k].report.failures} failure(s), "
-                      f"{preds[k].report.lost_steps} steps lost)"
-                      for k, v in predicted.items()))
 
-    runs = {k: [] for k in predicted}
-    finals = {}
-    # the drills with a failure in each round, the reference without once
-    drills = [(r, label, every, DRILL_FAIL) for r in range(DRILL_ROUNDS)
-              for label, every in (("baseline", DRILL_EVERY),
-                                   ("ckpt_interval", WHATIF_EVERY))]
-    drills.append((0, "no_failure", DRILL_EVERY, None))
-    if not deterministic:       # how far two uninterrupted drills end apart
-        drills.append((1, "no_failure", DRILL_EVERY, None))
+    # 3. the drills' checkpoint operations sampled before them, in
+    # SAMPLE_WINDOWS windows, and the cost fitted for each drill: the one
+    # constant of its RecoveryModel is the mean of its own operations (a
+    # save that also deletes costs ~1 s more, and ckpt_interval deletes in 5
+    # of its 9 operations, the baseline in 1 of 5; C10)
+    sample = {"save": [], "save + delete": [], "restore": []}
+    for w in range(SAMPLE_WINDOWS):
+        got = _ckpt_sample(cfg4, t4, ck / "fit", like4)
+        saved, restored = got.pop("saved"), got.pop("restored")
+        if w == 0:
+            bytes4 = _check_checkpoint(cfg4, saved, restored, ck / "fit",
+                                       f"{DRILL_LAYERS} layers")
+        del saved, restored
+        shutil.rmtree(ck / "fit")
+        for kind, ts in got["seconds"].items():
+            sample[kind] += ts
+    drills = {"baseline": (DRILL_EVERY, DRILL_FAIL),
+              "ckpt_interval": (WHATIF_EVERY, DRILL_FAIL),
+              "no_failure": (DRILL_EVERY, None)}
+    shares = {}
+    for label, (every, fail_at) in drills.items():
+        n = _drill_ops(every, fails=fail_at is not None)
+        shares[label] = {k: v / sum(n.values()) for k, v in n.items()}
+
+    def fit(share) -> tuple:
+        """The checkpoint cost fitted by weighted least squares to the full
+        depth's save + delete and restore and to the sample at the drills'
+        depth, each kind weighted by its ``share`` of a drill's operations
+        (at two sizes the line passes through each size's weighted mean):
+        (RecoveryModel, ckpt_bandwidth, ckpt_latency_s)."""
+        pts = [(nbytes, save_s + delete_s, 1.0), (nbytes, restore_s, 1.0)]
+        for kind, ts in sample.items():
+            pts += [(bytes4, t, share[kind] / len(ts)) for t in ts if share[kind]]
+        x, y, w = (np.array(c, dtype=np.float64) for c in zip(*pts))
+        slope, lat = np.polyfit(x, y, 1, w=np.sqrt(w))
+        if lat < 0 or slope <= 0:
+            # the cost per byte grows with the size (or falls), which a
+            # latency >= 0 and a bandwidth cannot hold at both sizes: held
+            # at the drills' size, with no latency
+            slope, lat = float(np.average(y[2:], weights=w[2:]) / bytes4), 0.0
+        return dataclasses.replace(rec0, ckpt_bandwidth=1.0 / slope,
+                                   ckpt_latency_s=float(lat)), 1.0 / slope, float(lat)
+
+    def predict(label, rec) -> tuple:
+        """The wall time at which the drill ``label``'s committed steps
+        reach DRILL_STEPS under ``rec``, and the prediction.  The failure
+        comes before step DRILL_FAIL: after DRILL_FAIL steps and the saves
+        among them, on the simulated clock (1 us later, so that a save
+        ending there commits)."""
+        every, fail_at = drills[label]
+        scenario = dataclasses.replace(scn, recovery=rec)
+        if fail_at is not None:
+            at = fail_at * steady + fail_at // every * rec.checkpoint_write_s
+            scenario = dataclasses.replace(scenario, timeline=FaultTimeline(
+                (FaultEvent(at + 1e-6, "fail"),), DRILL_HORIZON_S))
+        spec = "noop" if every == DRILL_EVERY else f"ckpt_interval:steps={every}"
+        t, pred = _progress_reaches(scenario, spec, DRILL_STEPS)
+        if pred.steady_step_s != steady:
+            fail("the fault scenario's steady step is not the traced step's makespan")
+        return t, pred
+
+    fits, times = {}, {}
+    for label in drills:
+        rec, bw, lat = fit(shares[label])
+        times[label], pred = predict(label, rec)
+        fits[label] = {"ckpt_bandwidth": bw, "ckpt_latency_s": lat,
+                       "checkpoint_write_s": rec.checkpoint_write_s,
+                       "full_write_s": nbytes / bw + lat,
+                       "failures": pred.report.failures, "lost_steps": pred.report.lost_steps}
+    print(f"faults: at {DRILL_LAYERS} layers ({bytes4 / 1e9:.3f} GB, step of {DRILL_BATCH} x "
+          f"{TRAIN_SEQ}) the drills' checkpoint operations, apart from them in "
+          f"{SAMPLE_WINDOWS} window(s): "
+          + "; ".join(f"{k} " + ", ".join(f"{t:.3f}" for t in v) for k, v in sample.items())
+          + f" s; fitted with the full depth's, each drill at its own shares: "
+          + "; ".join(f"{k} ({', '.join(f'{kk} {vv:.3f}' for kk, vv in shares[k].items())}): "
+                      f"{f['ckpt_bandwidth'] / 1e9:.4f} GB/s + {f['ckpt_latency_s']:.4f} s, "
+                      f"write = restore {f['checkpoint_write_s']:.3f} s"
+                      for k, f in fits.items())
+          + f"; predicted ({DRILL_STEPS} steps, traced steady step {steady * 1e3:.3f} ms, "
+          f"failure before step {DRILL_FAIL}): "
+          + ", ".join(f"{k} {v:.3f} s ({fits[k]['failures']} failure(s), "
+                      f"{fits[k]['lost_steps']} steps lost)" for k, v in times.items()))
+
+    # 4. the drills with a failure in each of DRILL_ROUNDS rounds, the one
+    # without once (twice where the step is not deterministic), measured
     per4 = {"flash_attention": DRILL_LAYERS, "rmsnorm": 2 * DRILL_LAYERS + 1,
             "fused_adam": 1, "dgc_mask": 0}
     total = dict.fromkeys(per4, 0)
-    for r, label, every, fail_at in drills:
-        d = _drill(cfg4, t4, ck / label, every, fail_at)
-        # the steps after the last save before the failure run twice
-        last = max((i for i in range(fail_at or 0) if (i + 1) % every == 0),
-                   default=-1)
-        want_steps = DRILL_STEPS + (fail_at - last - 1 if fail_at else 0)
-        want = {k: v * want_steps for k, v in per4.items()}
-        want_var = {"wgmma": DRILL_LAYERS * want_steps, "scalar": 0}
-        print(f"faults: round {r} drill {label} (save every {every}, failure "
-              f"before step {fail_at}): {d['wall_s']:.3f} s measured, "
-              f"{predicted[label]:.3f} s predicted ({predicted[label] / d['wall_s'] - 1:+.2%}); "
-              f"{d['executed_steps']} steps run, {d['restarts']} restart(s); "
-              f"launches {d['launches']} (need {want}), flash by kernel "
-              f"{d['flash_by_variant']}")
-        if (d["executed_steps"] != want_steps or d["launches"] != want
-                or d["flash_by_variant"] != want_var
-                or d["restarts"] != (1 if fail_at else 0)):
-            fail(f"drill {label}: {d['executed_steps']} steps, launches "
-                 f"{d['launches']} {d['flash_by_variant']}, {d['restarts']} restarts")
-        for k in total:
-            total[k] += d["launches"][k]
-        runs[label].append({k: d[k] for k in d if k != "state"})
-        finals[label if label not in finals else f"{label} {r}"] = d["state"]
+    runs = {k: [] for k in drills}
+    finals = {}
+    for r in range(DRILL_ROUNDS):
+        labels = ["baseline", "ckpt_interval"]
+        if r == 0 or (r == 1 and not deterministic):
+            labels.append("no_failure")
+        for label in labels:
+            every, fail_at = drills[label]
+            d = _drill(cfg4, t4, ck / label, every, fail_at)
+            # the steps after the last save before the failure run twice
+            last = max((i for i in range(fail_at or 0) if (i + 1) % every == 0),
+                       default=-1)
+            want_steps = DRILL_STEPS + (fail_at - last - 1 if fail_at else 0)
+            want = {k: v * want_steps for k, v in per4.items()}
+            want_var = {"wgmma": DRILL_LAYERS * want_steps, "scalar": 0}
+            print(f"faults: round {r} drill {label} (save every {every}, failure "
+                  f"before step {fail_at}): {d['wall_s']:.3f} s measured, "
+                  f"{times[label]:.3f} s predicted ({times[label] / d['wall_s'] - 1:+.2%}); "
+                  f"{d['executed_steps']} steps run, {d['restarts']} restart(s); "
+                  f"launches {d['launches']} (need {want}), flash by kernel "
+                  f"{d['flash_by_variant']}")
+            if (d["executed_steps"] != want_steps or d["launches"] != want
+                    or d["flash_by_variant"] != want_var
+                    or d["restarts"] != (1 if fail_at else 0)):
+                fail(f"drill {label}: {d['executed_steps']} steps, launches "
+                     f"{d['launches']} {d['flash_by_variant']}, {d['restarts']} restarts")
+            for k in total:
+                total[k] += d["launches"][k]
+            runs[label].append({k: d[k] for k in d if k != "state"})
+            finals[label if label not in finals else f"{label} {r}"] = d["state"]
     ref_state = finals["no_failure"]
     diffs = {k: _state_diff(finals[k], ref_state) for k in ("baseline", "ckpt_interval")}
     spread = 0.0 if deterministic else _state_diff(finals["no_failure 1"], ref_state)
@@ -2514,6 +2748,8 @@ def faults_phase(cfg, name: str, kernels: list, tmp: Path) -> dict:
         fail(f"the resumed drills' final states differ from the uninterrupted "
              f"one's: {diffs}, spread {spread}")
     del finals, ref_state
+    each = {k: [times[k] / d["wall_s"] - 1 for d in v] for k, v in runs.items()}
+    errors = {k: float(np.median(v)) for k, v in each.items()}
     measured = {k: float(np.median([d["wall_s"] for d in v])) for k, v in runs.items()}
     steps_s = [d["step_s"] for v in runs.values() for d in v]
     saves_s = [t for v in runs.values() for d in v for t in d["saves_s"]]
@@ -2523,17 +2759,31 @@ def faults_phase(cfg, name: str, kernels: list, tmp: Path) -> dict:
           f"{steady * 1e3:.3f} ms; save {np.median(saves_s):.3f} s "
           f"({min(saves_s):.3f}-{max(saves_s):.3f}), restore "
           f"{np.median(restores_s):.3f} s ({min(restores_s):.3f}-"
-          f"{max(restores_s):.3f}) against the fitted {rec.checkpoint_write_s:.3f} s")
-    errors = {k: predicted[k] / measured[k] - 1 for k in predicted}
-    print(f"faults: median of {DRILL_ROUNDS} round(s): "
-          + ", ".join(f"{k} predicted {predicted[k]:.3f} s, measured {measured[k]:.3f} s "
-                      f"({errors[k]:+.2%})" for k in predicted)
+          f"{max(restores_s):.3f}) against the fitted "
+          + ", ".join(f"{k} {f['checkpoint_write_s']:.3f}" for k, f in fits.items()) + " s")
+    print(f"faults: median of {DRILL_ROUNDS} round(s)' errors: " + ", ".join(
+              f"{k} {errors[k]:+.2%} (" + ", ".join(f"{e:+.2%}" for e in each[k]) + ")"
+              for k in each)
           + f" (need baseline within {FIDELITY_TOL:.0%}, ckpt_interval within "
           f"{PREDICT_TOL:.0%})")
     if abs(errors["baseline"]) > FIDELITY_TOL or abs(errors["ckpt_interval"]) > PREDICT_TOL:
         fail(f"fault drill predictions off: {errors}")
+    fit_out = {"shares": shares, "sample_s": sample, "sample_windows": SAMPLE_WINDOWS,
+               "drills": fits,
+               "full_depth_points": [{"bytes": nbytes, "seconds": save_s + delete_s,
+                                      "what": "save + delete"},
+                                     {"bytes": nbytes, "seconds": restore_s, "what": "restore"}],
+               "default_full_write_s": default.checkpoint_write_s,
+               "default_ckpt_bandwidth": default.ckpt_bandwidth,
+               "ratio_to_default": fits["baseline"]["full_write_s"]
+               / default.checkpoint_write_s}
+    print(f"faults: full-depth write by the drills' fits "
+          + ", ".join(f"{k} {f['full_write_s']:.3f}" for k, f in fits.items())
+          + f" s against H100_SXM's default {default.checkpoint_write_s:.3f} s "
+          f"({nbytes / 1e9:.4f} GB / {default.ckpt_bandwidth / 1e9:.0f} GB/s + "
+          f"{default.ckpt_latency_s} s): ratio {fit_out['ratio_to_default']:.3f} (baseline's)")
 
-    # 4. the goodput CLI on the drill step's capture
+    # 5. the goodput CLI on the drill step's capture
     cmd = [sys.executable, "-m", "repro_torch.launch.goodput", "--trace-dir",
            str(tmp / "faults"), "--what-if", f"ckpt_interval:steps={WHATIF_EVERY}"]
     env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")}
@@ -2544,15 +2794,15 @@ def faults_phase(cfg, name: str, kernels: list, tmp: Path) -> dict:
         fail(f"python -m repro_torch.launch.goodput exited {cli.returncode}")
     for kern in kernels:
         kern.setdefault("launches_by_path", {})["faults"] = total[kern["name"]]
-    del bundle, scn, preds, t4
+    del bundle, scn, t4
     torch.cuda.empty_cache()
-    return {"device": name, "filesystem": fs, "round_trip": round_trip, "fit": fit,
+    return {"device": name, "filesystem": fs, "round_trip": round_trip, "fit": fit_out,
             "drill": {"layers": DRILL_LAYERS, "checkpoint_bytes": bytes4,
-                      "steps": DRILL_STEPS, "save_every": DRILL_EVERY,
+                      "batch": DRILL_BATCH, "steps": DRILL_STEPS, "save_every": DRILL_EVERY,
                       "whatif_save_every": WHATIF_EVERY, "fail_before_step": DRILL_FAIL,
                       "steady_step_s": steady, "rounds": DRILL_ROUNDS,
-                      "predicted_s": predicted, "measured_s": measured,
-                      "errors": errors, "runs": runs,
+                      "predicted_s": times, "measured_s": measured,
+                      "errors": errors, "round_errors": each, "runs": runs,
                       "final_state_diff": diffs, "launches": total},
             "goodput_cli": {"exit": cli.returncode, "table": cli.stdout.splitlines()},
             "phase_s": time.perf_counter() - t0}
@@ -2625,8 +2875,16 @@ def _prompt_tokens(reqs) -> torch.Tensor:
     return toks
 
 
-def _moe_serve(cfg, reqs, kv: int) -> tuple:
-    """``ServeEngine.generate`` at full width and depth: (JSON, launches)."""
+def _norms(cfg) -> int:
+    """RMSNorm launches per forward pass: ln1 and ln2 of each layer (and
+    MLA's q_norm and kv_norm) and the final norm."""
+    return (4 if cfg.family == "mla_moe" else 2) * cfg.n_layers + 1
+
+
+def _moe_serve(cfg, reqs, kv: int, tag: str = "moe") -> tuple:
+    """``ServeEngine.generate`` at full width (and the config's depth):
+    (JSON, launches).  ``kv``: cache bytes per token.  Lines are printed as
+    ``tag:``."""
     L = cfg.n_layers
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=DEV)
@@ -2644,18 +2902,18 @@ def _moe_serve(cfg, reqs, kv: int) -> tuple:
     st = engine.stats
     steps = st["decode_steps"]
     total = sum(len(r.tokens) for r in results)
-    want = {"flash_attention": L, "rmsnorm": (2 * L + 1) * (1 + steps),
+    want = {"flash_attention": L, "rmsnorm": _norms(cfg) * (1 + steps),
             "fused_adam": 0, "dgc_mask": 0}
     want_variant = {"wgmma": L, "scalar": 0}
     tok_s = total / (st["prefill_s"] + st["decode_s"])
-    print(f"moe: serve {cfg.name}, {L} layers, full width, bf16 (initialised in "
+    print(f"{tag}: serve {cfg.name}, {L} layers, full width, bf16 (initialised in "
           f"{init_s:.2f}s): {len(reqs)} requests, prompts {PROMPT_LENS} (left-padded "
           f"to {plen}), {total} tokens; prefill {st['prefill_s'] * 1e3:.2f} ms, decode "
           f"{st['decode_s'] / steps * 1e3:.3f} ms/token over {steps} steps, "
           f"{tok_s:.1f} tokens/s; peak device memory {peak_gb:.2f} GB; launches "
           f"{counts}, flash by kernel {by_variant} (need {want}, {want_variant})")
     if counts != want or by_variant != want_variant:
-        fail(f"moe serve launch counts {counts} {by_variant} != {want} {want_variant}")
+        fail(f"{tag} serve launch counts {counts} {by_variant} != {want} {want_variant}")
     if not all(len(r.tokens) == NEW_TOKENS and all(0 <= t < cfg.vocab for t in r.tokens)
                for r in results):
         fail(f"bad generation {[r.tokens for r in results]}")
@@ -2678,17 +2936,17 @@ def _moe_serve(cfg, reqs, kv: int) -> tuple:
     cache_b = len(reqs) * (plen + 1) * kv
     bound_ms = (weight_b + cache_b) / PEAK_BYTES * 1e3
     host_pre, host_dec = st["prefill_s"] * 1e3, st["decode_s"] / steps * 1e3
-    print(f"moe: serve device time per prefill {pre_ms:.3f} ms over {pre_n:.0f} ops "
+    print(f"{tag}: serve device time per prefill {pre_ms:.3f} ms over {pre_n:.0f} ops "
           f"(busy {pre_ms / host_pre:.1%} of {host_pre:.2f} ms); per decode step "
           f"{dec_ms:.3f} ms over {dec_n:.0f} ops (busy {dec_ms / host_dec:.1%} of "
           f"{host_dec:.3f} ms); the decode step's read bound {bound_ms:.3f} ms "
           f"({weight_b / 1e9:.2f} GB of weights, every expert, + {cache_b / 1e9:.3f} GB "
           f"of cache at 3.35e12 B/s): device {dec_ms / bound_ms:.2f}x, host "
           f"{host_dec / bound_ms:.2f}x it; logits finite {finite} (need True)")
-    print("moe: serve largest device ms per decode step by op: "
+    print(f"{tag}: serve largest device ms per decode step by op: "
           + "; ".join(f"{nm} {t:.3f}" for t, nm in top))
     if not finite:
-        fail("moe serve logits are not finite")
+        fail(f"{tag} serve logits are not finite")
     del engine, params, model, cache, logits, dec_logits
     torch.cuda.empty_cache()
     return ({"layers": L, "params": count_params(cfg), "prompts": PROMPT_LENS,
@@ -2734,7 +2992,7 @@ def _recording_routes(store: list):
         moe_layer._route = plain
 
 
-def _moe_paths(cfg, toks, seq) -> dict:
+def _moe_paths(cfg, toks, seq, tag: str = "moe") -> dict:
     """The float32 model at MOE_TRAIN_LAYERS layers (attention projections
     rescaled, as the serve phase does): its prefill through the kernels
     against the same through their plain versions, then decode against a
@@ -2761,27 +3019,27 @@ def _moe_paths(cfg, toks, seq) -> dict:
     err = max_err(got, want)
     rel = err / want.abs().max().item()
     L = cfg.n_layers
-    need = {"flash_attention": L, "rmsnorm": 2 * L + 1, "fused_adam": 0, "dgc_mask": 0}
-    print(f"moe: {L} layers, float32, prefill of {tuple(toks.shape)}: kernel path "
+    need = {"flash_attention": L, "rmsnorm": _norms(cfg), "fused_adam": 0, "dgc_mask": 0}
+    print(f"{tag}: {L} layers, float32, prefill of {tuple(toks.shape)}: kernel path "
           f"against plain path: {share:.6f} of {sum(a.numel() for a, _ in kernel_routes)} "
           f"expert indices equal (need >= {MOE_ROUTE_SHARE}), logits max abs err "
           f"{err:.3g}, {rel:.3g} of their largest magnitude (need <= {MOE_LOGITS_RTOL}); "
           f"launches {counts} then {plain_counts} (need {need}, then unchanged)")
     if share < MOE_ROUTE_SHARE or not rel <= MOE_LOGITS_RTOL:
-        fail("the moe model's kernel path disagrees with its plain path")
+        fail(f"the {tag} model's kernel path disagrees with its plain path")
     if counts != need or plain_counts != counts:
-        fail(f"moe kernel-path launches {counts}, {plain_counts} != {need}")
+        fail(f"{tag} kernel-path launches {counts}, {plain_counts} != {need}")
     out = {"layers": L, "dtype": "float32", "equal_expert_share": share,
            "logits_max_abs_err": err, "logits_rel_err": rel}
     no_drop = cfg.n_experts / cfg.top_k
     for cf, gated in ((cfg.capacity_factor, False), (no_drop, True)):
         finite, top1, rel = _decode_vs_prefill(cfg.with_(capacity_factor=cf), params, seq)
-        print(f"moe: {L} layers, float32, capacity factor {cf:.4g}: decode vs prefill at "
+        print(f"{tag}: {L} layers, float32, capacity factor {cf:.4g}: decode vs prefill at "
               f"S={seq.shape[1] - 1}: top-1 agreement {top1:.3f}, relative max error "
               f"{rel:.3g}, finite {finite} (need >= {MOE_TOP1}, < {MOE_REL}, True"
               + (")" if gated else "; printed, not gated)"))
         if gated and not (finite and top1 >= MOE_TOP1 and rel < MOE_REL):
-            fail("moe decode disagrees with prefill where no slot can drop")
+            fail(f"{tag} decode disagrees with prefill where no slot can drop")
         out[f"decode_vs_prefill_cf_{cf:.4g}"] = {"top1": top1, "rel_err": rel,
                                                  "gated": gated}
     del params, model, got, want
@@ -2937,6 +3195,257 @@ def _moe_train(cfg) -> tuple:
                       "aux_per_block": aux}}, run_counts)
 
 
+def deepseek_kernel_phase() -> list:
+    """Flash attention at deepseek-v2-236b's MLA shapes (q/k head dim 192, v
+    head dim 128, 128 heads with their own K): the serve prefill's and the
+    train step's, checked, timed beside SDPA and bounded.  Run early, right
+    after the kernel phase (before ``moe_kernel_phase``)."""
+    cfg = get_config(DEEPSEEK_ARCH)
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    rows = [{"name": "flash_attention", "path": "serve prefill",
+             **_flash_entry(gen, cfg, len(PROMPT_LENS), max(PROMPT_LENS))},
+            {"name": "flash_attention", "path": "train",
+             **_flash_entry(gen, cfg, MOE_TRAIN_BATCH, TRAIN_SEQ)}]
+    for r in rows:
+        print(f"kernels: deepseek {r['name']} at {r['shape']} ({r['path']}): "
+              f"{r['ms']:.5f} ms device, bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{r['share_of_bound']:.1%}), CUDA-core kernel {r['scalar_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.5f} ms, max abs err "
+              f"{r['max_abs_err']:.3g}")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def deepseek_phase(name: str, kernels: list, rows: list) -> dict:
+    """The mla_moe family on the card (deepseek-v2-236b, random weights from
+    seed 0): served at full width and DEEPSEEK_SERVE_LAYERS of its 60 layers
+    in bf16, the DEEPSEEK_TRAIN_LAYERS-layer model through the kernels
+    against their plain versions in float32, forward and backward at full
+    width and DEEPSEEK_TRAIN_LAYERS layers (1 x TRAIN_SEQ), Daydream's
+    baseline on that step, and ``perf_report.trace_cell`` of the full
+    60-layer train_4k step on meta tensors.  Every earlier phase's tensor
+    is freed first (gated), and the free device memory gated against the
+    served weights.  ``rows`` are the flash rows timed at its shapes
+    (``deepseek_kernel_phase``), given their launches here.  Returns the
+    ``deepseek`` JSON object."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    full = get_config(DEEPSEEK_ARCH)
+    cfg = full.with_(n_layers=DEEPSEEK_SERVE_LAYERS)
+    n_full, n = count_params(full), count_params(cfg)
+    per_layer = (n_full - n) // (full.n_layers - cfg.n_layers)
+    kv = 2 * cfg.n_layers * (cfg.kv_lora + cfg.qk_rope)
+    free_gb = torch.cuda.mem_get_info()[0] / 1e9
+    need_gb = 2 * n / 1e9 + DEEPSEEK_MARGIN_GB
+    print(f"deepseek: {full.name}: {n_full:,} parameters at 60 layers ({2 * n_full / 1e9:.1f} "
+          f"GB of bf16), {per_layer:,} per layer ({2 * per_layer / 1e9:.3f} GB), so "
+          f"{cfg.n_layers} layers are served: {n:,} parameters, {2 * n / 1e9:.2f} GB with "
+          f"the embedding and unembedding; depth is the only cut.  MLA cache {kv:,} B per "
+          f"token (c_kv {cfg.kv_lora} + k_rope {cfg.qk_rope} per layer); device memory "
+          f"still allocated before the phase {held:.3f} GB (need <= {MOE_HELD_GB}), free "
+          f"{free_gb:.2f} GB (need >= {need_gb:.2f})")
+    if held > MOE_HELD_GB:
+        fail(f"{held:.3f} GB of earlier phases' tensors still on the card")
+    if free_gb < need_gb:
+        fail(f"{free_gb:.2f} GB free on the card for {need_gb:.2f} GB")
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab, n_)],
+                    max_new_tokens=NEW_TOKENS) for n_ in PROMPT_LENS]
+    seq = torch.tensor(rng.integers(1, cfg.vocab, (len(reqs), max(PROMPT_LENS) + 1)),
+                       device=DEV)
+    serve, serve_counts = _moe_serve(cfg, reqs, kv, "deepseek")
+    paths = _moe_paths(full.with_(n_layers=DEEPSEEK_TRAIN_LAYERS, dtype="float32"),
+                       _prompt_tokens(reqs), seq, "deepseek")
+    tcfg = full.with_(n_layers=DEEPSEEK_TRAIN_LAYERS)
+    train, train_counts, daydream = _deepseek_train(tcfg, name)
+    daydream["compiled"] = _deepseek_compiled(full)
+    for kern in kernels:        # the main path: the served and the trained run
+        kern["launches_by_path"]["deepseek"] = (serve_counts[kern["name"]]
+                                                + train_counts[kern["name"]])
+    for row in rows:
+        row["launches"] = serve_counts[row["name"]] + train_counts[row["name"]]
+    phase_s = time.perf_counter() - t0
+    print(f"deepseek: phase {phase_s:.1f}s")
+    return {"device": name, "config": f"{full.name} at {cfg.n_layers} of "
+            f"{full.n_layers} layers (served) and {tcfg.n_layers} (trained), random "
+            f"weights from seed 0", "serve": serve, "paths": paths, "kernels": rows,
+            "train": train, "daydream": daydream, "phase_s": phase_s}
+
+
+def _deepseek_train(cfg, name: str) -> tuple:
+    """``loss_and_grads`` at full width and ``cfg.n_layers`` layers on
+    ``SyntheticLM`` batches of one sequence of TRAIN_SEQ (no optimizer: its
+    state does not fit the card): one warm-up and TRAIN_STEPS - 1 timed
+    steps, launches exact per step; the last step's loss split into
+    cross-entropy and the aux term, every gradient finite, the router's
+    and every expert's nonzero.  Then Daydream's baseline: the step traced
+    (``trace_measured``), simulated and held within FIDELITY_TOL of the step
+    measured (``measure_wallclock``, before and after the trace).
+    (JSON, launches, the Daydream JSON)."""
+    L, S, B = cfg.n_layers, TRAIN_SEQ, MOE_TRAIN_BATCH
+    n, active = count_params(cfg), active_params(cfg)
+    print(f"deepseek: train {cfg.name} at {L} layers, full width: {n:,} parameters, "
+          f"{active:,} active per token; bf16 params + grads 4 B x {n:,} = "
+          f"{4 * n / 1e9:.1f} GB before activations (the fused AdamW step would hold "
+          f"20 B a parameter, {20 * n / 1e9:.0f} GB), so forward and backward only")
+    per_step = {"flash_attention": L, "rmsnorm": _norms(cfg), "fused_adam": 0,
+                "dgc_mask": 0}
+    per_variant = {"wgmma": L, "scalar": 0}
+    H = cfg.n_heads
+    D, Dv = perf_report.flash_head_dims(cfg)
+    attn_flops = 3 * 2 * (D + Dv) * (B * H * S * (S + 1) // 2) * L
+    flops = 6 * active * B * S + attn_flops
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, seed=0, device=DEV)
+    data = SyntheticLM(cfg.vocab, S, B, seed=0)
+    batches = [{k: torch.from_numpy(v).to(DEV) for k, v in data.batch_at(i).items()}
+               for i in range(TRAIN_STEPS)]
+    counts, variants, times, losses = [], [], [], []
+    for i, batch in enumerate(batches):
+        routes = []
+        ops.reset_launch_counts()
+        sync()
+        t1 = time.perf_counter()
+        with _recording_routes(routes):
+            loss, grads = loss_and_grads(cfg, params, batch)
+        sync()
+        times.append(time.perf_counter() - t1)
+        counts.append(ops.launch_counts())
+        variants.append(dict(flash_kernel.launches_by_variant))
+        losses.append(float(loss))
+        if i < len(batches) - 1:
+            del grads
+    step_s = float(np.mean(times[1:]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    train = {"layers": L, "params": n, "active_params": active, "batch": B, "seq": S,
+             "losses": losses, "step_ms": step_s * 1e3, "step_ms_each": [t * 1e3 for t in times],
+             "tokens_per_s": B * S / step_s, "flops_per_step": flops,
+             "mfu": flops / step_s / PEAK_BF16_FLOPS, "peak_gb": peak,
+             "launches_per_step": per_step}
+    print(f"deepseek: train forward+backward, steps " + ", ".join(
+        f"{i}: loss {l:.4f} {t * 1e3:.1f} ms" for i, (l, t) in enumerate(zip(losses, times)))
+        + f" (step 0 the warm-up); step {train['step_ms']:.1f} ms (host clock ending in a "
+        f"sync), {train['tokens_per_s']:.1f} tokens/s, mfu {train['mfu']:.4f} ((6 x active "
+        f"params x tokens + causal attention {attn_flops:.3g}) / step / 989e12); peak "
+        f"device memory {peak:.2f} GB; launches per step {counts}, flash by kernel "
+        f"{variants} (need {per_step}, {per_variant} each)")
+    if any(c != per_step for c in counts) or any(v != per_variant for v in variants):
+        fail(f"deepseek train launch counts {counts} {variants}")
+    if not np.isfinite(losses).all():
+        fail(f"non-finite deepseek loss {losses}")
+    run_counts = {k: sum(c[k] for c in counts) for k in per_step}
+
+    # the last step: CE + aux, and every gradient
+    with torch.no_grad():
+        ce = loss_fn(cfg.with_(aux_loss_coef=0.0), params, batches[-1])
+    aux = [float(a.detach()) for _, a in routes]
+    term = losses[-1] - float(ce)
+    want_term = cfg.aux_loss_coef * sum(aux) / L
+    named = _named(grads)
+    dead = [k for k, g in named.items() if not torch.isfinite(g).all()
+            or (not k.endswith("norm") and not (g != 0).any())]
+    idle = [f"{k}[{e}]" for k, g in named.items() if k.split(".")[-1] in
+            ("w_gate", "w_up", "w_down") for e in range(g.shape[0])
+            if not (g[e] != 0).any()]
+    attn = {k.split("attn.")[1]: float(g.float().norm()) for k, g in named.items()
+            if ".attn." in k and k.startswith("blocks.0.")}
+    print(f"deepseek: train loss {losses[-1]:.4f} = cross-entropy {float(ce):.4f} + "
+          f"{term:.6f}, the aux term {cfg.aux_loss_coef} x {sum(aux):.4f} / {L} = "
+          f"{want_term:.6f} (aux per block {', '.join(f'{a:.4f}' for a in aux)}); "
+          f"{len(named)} gradient leaves, {len(dead)} not finite or all zero, {len(idle)} "
+          f"experts with an all-zero gradient (need 0, 0); layer 0's attention gradient "
+          f"norms " + ", ".join(f"{k} {v:.4g}" for k, v in attn.items()))
+    if not (all(np.isfinite(aux)) and len(aux) == L and abs(term - want_term) <= 1e-3):
+        fail(f"deepseek loss {losses[-1]} does not carry its aux term {want_term}")
+    if dead or idle or not all(math.isfinite(v) and v > 0 for v in attn.values()):
+        fail(f"deepseek gradients missing: {dead} {idle} {attn}")
+    train["loss"] = {"total": losses[-1], "cross_entropy": float(ce), "aux_per_block": aux}
+    del grads, named, loss
+
+    # Daydream: the forward+backward step traced, simulated, measured
+    batch = batches[0]
+
+    def step():
+        loss_and_grads(cfg, params, batch)
+
+    ops.reset_launch_counts()
+    before = measure_wallclock(step, device=DEV, iters=WHATIF_ITERS, warmup=1) * 1e3
+    t1 = time.perf_counter()
+    bundle = trace_measured(step, device=DEV)
+    trace_s = time.perf_counter() - t1
+    after = measure_wallclock(step, device=DEV, iters=WHATIF_ITERS, warmup=1) * 1e3
+    sync()
+    steps = 2 * (WHATIF_ITERS + 1) + 2 + 3          # + trace_measured's warm-up, captures
+    got = ops.launch_counts()
+    want = {k: v * steps for k, v in per_step.items()}
+    g = bundle.graph
+    g.toposort()
+    dev = g.lane_tasks(DEVICE_STREAM)
+    dev_s = sum(t.duration for t in dev)
+    by = {}
+    for t in dev:
+        by[str(t.layer)] = by.get(str(t.layer), 0.0) + t.duration * 1e3
+    mapped = 1 - by.get("None", 0.0) / (dev_s * 1e3)
+    phases = {t.phase for t in dev}
+    unlaunched = sum(not any(p.thread == HOST_THREAD for p in g.parents(t)) for t in dev)
+    sim_ms = bundle.simulate().makespan * 1e3
+    meas_ms = (before + after) / 2
+    fidelity = sim_ms / meas_ms - 1
+    print(f"deepseek: forward+backward step traced in {trace_s:.1f}s: {len(dev)} device "
+          f"tasks, device {dev_s * 1e3:.3f} ms by layer "
+          + ", ".join(f"{k} {v:.3f}" for k, v in sorted(by.items(), key=lambda kv: -kv[1]))
+          + f"; {mapped:.2%} of device time has a layer (need >= 90%), phases "
+          f"{sorted(map(str, phases))}, {unlaunched} kernels without a launch (need 0); "
+          f"simulated {sim_ms:.3f} ms against measured (CUDA events, median of "
+          f"{WHATIF_ITERS}) {before:.3f} / {after:.3f} ms: error {fidelity:+.2%} (need "
+          f"within {FIDELITY_TOL:.0%}); launches {got} (need {want})")
+    if not ({"fwd", "bwd"} <= phases and mapped >= 0.9 and unlaunched == 0):
+        fail("the traced deepseek step graph lacks a phase, a layer map or a launch edge")
+    if abs(fidelity) > FIDELITY_TOL:
+        fail(f"simulated deepseek step {sim_ms:.3f} ms is {fidelity:+.2%} off the "
+             f"measured {meas_ms:.3f} ms")
+    if got != want:
+        fail(f"deepseek Daydream launch counts {got} != {want}")
+    daydream = {"device": name, "trace_s": trace_s, "device_tasks": len(dev),
+                "device_ms": dev_s * 1e3, "device_ms_by_layer": by,
+                "layer_mapped_share": mapped,
+                "baseline": {"simulated_ms": sim_ms, "measured_ms": meas_ms,
+                             "measured_runs_ms": [before, after], "error": fidelity}}
+    train["measure_wallclock"] = {"step_ms": meas_ms,
+                                  "mfu": flops / meas_ms / 1e-3 / PEAK_BF16_FLOPS}
+    del bundle, g, dev, params, batches, batch
+    torch.cuda.empty_cache()
+    return train, run_counts, daydream
+
+
+def _deepseek_compiled(cfg) -> dict:
+    """``perf_report.trace_cell`` of the full config's train_4k step (the
+    per-device 1 x 4096 data-parallel step of every layer, the fused AdamW
+    update included) on meta tensors, priced by H100_SXM: printed, not
+    gated (no card holds that step to measure it against)."""
+    t0 = time.perf_counter()
+    bundle = perf_report.trace_cell(cfg, SHAPES["train_4k"])
+    trace_s = time.perf_counter() - t0
+    dev = bundle.graph.lane_tasks(DEVICE_STREAM)
+    kernel_tasks = {k: sum(t.attrs.get("kernel") == k for t in dev)
+                    for k in ("flash_attention", "rmsnorm", "fused_adam", "dgc_mask")}
+    by = {}
+    for t in dev:
+        by[str(t.layer)] = by.get(str(t.layer), 0.0) + t.duration * 1e3
+    sim_ms = bundle.simulate().makespan * 1e3
+    print(f"deepseek: trace_cell of {cfg.name} train_4k, {cfg.n_layers} layers, 1 x "
+          f"4096 on meta tensors in {trace_s:.1f}s: {len(dev)} device tasks, kernel tasks "
+          f"{kernel_tasks}, simulated step {sim_ms:.3f} ms on H100_SXM's data sheet, by "
+          f"layer " + ", ".join(f"{k} {v:.3f}" for k, v in
+                                sorted(by.items(), key=lambda kv: -kv[1]))
+          + " (printed, not gated)")
+    return {"trace_s": trace_s, "layers": cfg.n_layers, "device_tasks": len(dev),
+            "kernel_tasks": kernel_tasks, "simulated_ms": sim_ms, "ms_by_layer": by}
+
+
 MOE_ROWS = [("attention", lambda k: k.startswith("attn ")),
             ("moe (routed experts)", lambda k: k.startswith("moe ")),
             ("moe (shared experts)", lambda k: k.startswith("mlp ")),
@@ -3042,13 +3551,20 @@ def loss_falls_phase(cfg, trainer) -> None:
 
 
 def _rescale_attention(cfg, params) -> None:
-    """In place: wq, wk, wv to std 1/sqrt(d), wo to std 1/sqrt(H * hd)."""
+    """In place: wq, wk, wv to std 1/sqrt(d), wo to std 1/sqrt(H * hd); MLA's
+    wq_b to std 1/sqrt(q_lora), wk_b and wv_b to std 1/sqrt(kv_lora), so q,
+    k and v have entries of std ~1, and wo as GQA's."""
     d, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     for lp in params["blocks"]:
         a = lp["attn"]
-        a["wq"] *= (H / d) ** 0.5
-        a["wk"] *= (K / d) ** 0.5
-        a["wv"] *= (K / d) ** 0.5
+        if cfg.family == "mla_moe":
+            a["wq_b"] *= (H / cfg.q_lora) ** 0.5
+            a["wk_b"] *= (H / cfg.kv_lora) ** 0.5
+            a["wv_b"] *= (H / cfg.kv_lora) ** 0.5
+        else:
+            a["wq"] *= (H / d) ** 0.5
+            a["wk"] *= (K / d) ** 0.5
+            a["wv"] *= (K / d) ** 0.5
         a["wo"] *= (1 / H) ** 0.5
 
 
@@ -3083,7 +3599,8 @@ def _decode_vs_prefill(cfg, params, seq) -> tuple:
         _, prefix = model.prefill(params, {"tokens": seq[:, :S]})
         cache = init_cache(cfg, seq.shape[0], S + 1, DEV)
         for layer, pre in zip(cache, prefix):
-            layer["k"][:, :S], layer["v"][:, :S] = pre["k"], pre["v"]
+            for key, leaf in pre.items():
+                layer[key][:, :S] = leaf
         dec, _ = model.decode(params, cache, seq[:, S:], S)
         a, b = full.float(), dec.float()
         finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
@@ -3116,36 +3633,51 @@ def _named(tree, prefix=""):
 
 def main() -> None:
     t0 = time.perf_counter()
-    name = device_phase()
-    build_phase()
+    seconds = {}
+
+    def phase(label, fn, *args):
+        """``fn(*args)``, its seconds printed on a line of their own."""
+        t1 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = time.perf_counter() - t1
+        print(f"chip_smoke: phase {label} took {seconds[label]:.1f}s", flush=True)
+        return out
+
+    name = phase("device", device_phase)
+    phase("build", build_phase)
     prime_profiler()
     cfg = get_config(ARCH)
-    kernels = kernel_phase(cfg, len(PROMPT_LENS), max(PROMPT_LENS))
-    moe_rows = moe_kernel_phase()
-    n_params = serve_phase(cfg, kernels)
-    kernels += adam_dgc_phase(n_params)
-    train_phase(cfg, kernels, n_params)
+    kernels = phase("kernels", kernel_phase, cfg, len(PROMPT_LENS), max(PROMPT_LENS))
+    deepseek_rows = phase("deepseek kernels", deepseek_kernel_phase)
+    moe_rows = phase("moe kernels", moe_kernel_phase)
+    n_params = phase("serve", serve_phase, cfg, kernels)
+    kernels += phase("adam, dgc", adam_dgc_phase, n_params)
+    phase("train", train_phase, cfg, kernels, n_params)
     with tempfile.TemporaryDirectory() as tmp:
         traces, handoff = Path(tmp), {}
-        whatif = whatif_phase(cfg, name, kernels, traces)
-        amp = amp_phase(cfg, name, kernels, traces, handoff)
-        traceio = traceio_phase(name, traces, handoff)
-        launch = launch_phase(cfg, name, kernels, traces, handoff, amp)
+        whatif = phase("whatif", whatif_phase, cfg, name, kernels, traces)
+        amp = phase("amp", amp_phase, cfg, name, kernels, traces, handoff)
+        traceio = phase("traceio", traceio_phase, name, traces, handoff)
+        launch = phase("launch", launch_phase, cfg, name, kernels, traces, handoff, amp)
         del handoff
-        faults = faults_phase(cfg, name, kernels, traces)
-    moe = moe_phase(name, kernels, moe_rows)
-    serving = serving_phase()   # last: no profiled phase follows its launches
+        faults = phase("faults", faults_phase, cfg, name, kernels, traces)
+    moe = phase("moe", moe_phase, name, kernels, moe_rows)
+    deepseek = phase("deepseek", deepseek_phase, name, kernels, deepseek_rows)
+    serving = phase("serving", serving_phase)   # last: no profiled phase follows its launches
     for kern in kernels:    # the count from this slice's main path, or its own
         paths = kern["launches_by_path"]
         paths["serving"] = serving["launches"][kern["name"]]
         kern["launches"] = paths["launch"] or paths.get("dgc", 0)
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "profiler",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "event_ms_apart",
+            "profiler",
             "call_ms", "shape",
             "launches_by_path", "launches_per_train_step"]
     extra = ["scalar_ms", "scalar_max_abs_err", "share_of_bound", "ratio_to_library",
              "scalar_source", "launches_by_variant", "train_shape", "library_call"]
-    print(f"chip_smoke: all phases passed in {time.perf_counter() - t0:.1f}s")
+    total = time.perf_counter() - t0
+    print(f"chip_smoke: all phases passed in {total:.1f}s; by phase "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     print(card())           # again at the end: the limit the run ended under
     print(json.dumps({"whatif": whatif}))
     print(json.dumps({"amp": amp}))
@@ -3154,6 +3686,8 @@ def main() -> None:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"launch": launch}))
     print(json.dumps({"moe": moe}))
+    print(json.dumps({"deepseek": deepseek}))
+    print(json.dumps({"phase_s": {**seconds, "total": total}}))
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -73,9 +73,9 @@ def _kernel_cost(op: _Event) -> Tuple[float, float]:
     """(FLOPs, bytes) of the launch a kernel's meta operator stands for."""
     name, dims = op.name[len(KERNEL_PREFIX):], _dims(op)
     if name == "flash_attention":
-        (B, H, S, D), KH = dims[0], dims[1][1]
+        (B, H, S, D), KH, Dv = dims[0], dims[1][1], dims[2][3]
         causal = str((op.args.get("Concrete Inputs") or [""] * 4)[3]) != "False"
-        return kernel_cost.flash_attention(B, H, KH, S, D, causal=causal,
+        return kernel_cost.flash_attention(B, H, KH, S, D, D_v=Dv, causal=causal,
                                            itemsize=_itemsize(op))
     if name == "rmsnorm":
         x = dims[0]

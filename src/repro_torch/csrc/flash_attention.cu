@@ -25,11 +25,19 @@
 //     bound, not skipped grid steps), which halves the work;
 //   * scores are kept in the log2 domain (q pre-scaled by log2(e)/sqrt(D))
 //     so the softmax uses exp2f.
-// The ragged S edge and the D < DMAX columns are zero-filled in shared memory
+// The ragged S edge and the columns past D are zero-filled in shared memory
 // and masked; f32 and bf16 inputs share the code, the output is written in
 // the input type.  Inputs are addressed through strides, so (B, S, H, D)
 // tensors can be passed as (B, H, S, D) views without a copy; the last
 // dimension must be contiguous.
+//
+// q and k have one head dim (Dqk) and v and the output another (Dv), as
+// DeepSeek-V2's multi-head latent attention needs (Dqk 192 = 128 + 64 rope
+// columns, Dv 128).  The kernel is instantiated for Dqk buckets of 64, 128
+// and 192 columns and Dv buckets of 64 and 128; Dqk = Dv takes the bucket
+// pairs (64, 64) and (128, 128) that a single head dim always took.  At
+// (192, 128) the shared memory is 32 x 192 (Q) + 32 x 196 (K) + 32 x 128 (V)
+// + 32 x 32 (P) floats, 70.1 KB.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,27 +76,28 @@ struct Strides {  // in elements; the last (D) stride is 1
   long long b, h, s;
 };
 
-template <int DMAX>
+template <int DQK, int DV>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (kBlockQ * DMAX            // Qs
-                          + kBlockK * (DMAX + 4)    // Ks, padded rows
-                          + kBlockK * DMAX          // Vs
+  return sizeof(float) * (kBlockQ * DQK             // Qs
+                          + kBlockK * (DQK + 4)     // Ks, padded rows
+                          + kBlockK * DV            // Vs
                           + kBlockQ * kBlockK);     // Ps
 }
 
-template <typename T, int DMAX>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int group, int S, int D, int causal, float scale_log2,
+          T* __restrict__ o, int group, int S, int D, int Dv, int causal, float scale_log2,
           Strides sq, Strides sk, Strides sv, Strides so) {
-  constexpr int KPAD = DMAX + 4;
-  constexpr int DPL = DMAX / 32;  // output columns per lane
-  static_assert(DPL == 2 || DPL == 4, "DMAX must be 64 or 128");
+  constexpr int KPAD = DQK + 4;
+  constexpr int DPL = DV / 32;  // output columns per lane
+  static_assert(DPL == 2 || DPL == 4, "DV must be 64 or 128");
+  static_assert(DQK % 4 == 0, "DQK must be a multiple of 4");
   extern __shared__ __align__(16) float smem[];
-  float* Qs = smem;                    // [kBlockQ][DMAX], pre-scaled
-  float* Ks = Qs + kBlockQ * DMAX;     // [kBlockK][KPAD]
-  float* Vs = Ks + kBlockK * KPAD;     // [kBlockK][DMAX]
-  float* Ps = Vs + kBlockK * DMAX;     // [kBlockQ][kBlockK]
+  float* Qs = smem;                    // [kBlockQ][DQK], pre-scaled
+  float* Ks = Qs + kBlockQ * DQK;      // [kBlockK][KPAD]
+  float* Vs = Ks + kBlockK * KPAD;     // [kBlockK][DV]
+  float* Ps = Vs + kBlockK * DV;       // [kBlockQ][kBlockK]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int q0 = blockIdx.x * kBlockQ;
@@ -99,8 +108,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const T* vb = v + b * sv.b + kvh * sv.h;
   T* ob = o + b * so.b + h * so.h;
 
-  for (int i = tid; i < kBlockQ * DMAX; i += kThreads) {
-    const int r = i / DMAX, d = i % DMAX;
+  for (int i = tid; i < kBlockQ * DQK; i += kThreads) {
+    const int r = i / DQK, d = i % DQK;
     Qs[i] = (q0 + r < S && d < D) ? to_float(qb[(q0 + r) * sq.s + d]) * scale_log2 : 0.f;
   }
 
@@ -120,11 +129,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int t = 0; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
     __syncthreads();  // the previous tile is consumed (and Qs is written)
-    for (int i = tid; i < kBlockK * DMAX; i += kThreads) {
-      const int j = i / DMAX, d = i % DMAX;
-      const bool in = k0 + j < S && d < D;
-      Ks[j * KPAD + d] = in ? to_float(kb[(k0 + j) * sk.s + d]) : 0.f;
-      Vs[j * DMAX + d] = in ? to_float(vb[(k0 + j) * sv.s + d]) : 0.f;
+    for (int i = tid; i < kBlockK * DQK; i += kThreads) {
+      const int j = i / DQK, d = i % DQK;
+      Ks[j * KPAD + d] = k0 + j < S && d < D ? to_float(kb[(k0 + j) * sk.s + d]) : 0.f;
+    }
+    for (int i = tid; i < kBlockK * DV; i += kThreads) {
+      const int j = i / DV, d = i % DV;
+      Vs[j * DV + d] = k0 + j < S && d < Dv ? to_float(vb[(k0 + j) * sv.s + d]) : 0.f;
     }
     __syncthreads();
 
@@ -134,11 +145,11 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int r = 0; r < kRowsPerWarp; ++r) s[r] = 0.f;
     const float* krow = Ks + lane * KPAD;
 #pragma unroll 4
-    for (int d = 0; d < DMAX; d += 4) {
+    for (int d = 0; d < DQK; d += 4) {
       const float4 kv = *reinterpret_cast<const float4*>(krow + d);
 #pragma unroll
       for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(Qs + (row0 + r) * DMAX + d);
+        const float4 qv = *reinterpret_cast<const float4*>(Qs + (row0 + r) * DQK + d);
         s[r] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y, fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, s[r]))));
       }
     }
@@ -170,7 +181,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
       float vv[4][DPL];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = Vs + (j + jj) * DMAX + lane * DPL;
+        const float* vrow = Vs + (j + jj) * DV + lane * DPL;
         if constexpr (DPL == 4) {
           const float4 x = *reinterpret_cast<const float4*>(vrow);
           vv[jj][0] = x.x; vv[jj][1] = x.y; vv[jj][2] = x.z; vv[jj][3] = x.w;
@@ -198,49 +209,64 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
       const int d = lane * DPL + i;
-      if (d < D) ob[qpos * so.s + d] = from_float<T>(acc[r][i] * inv);
+      if (d < Dv) ob[qpos * so.s + d] = from_float<T>(acc[r][i] * inv);
     }
   }
 }
 
-template <typename T, int DMAX>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int KH, int S, int D, int causal, float scale_log2, Strides sq,
+                   int KH, int S, int D, int Dv, int causal, float scale_log2, Strides sq,
                    Strides sk, Strides sv, Strides so, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DMAX>();
+  constexpr size_t smem = smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd<T, DMAX><<<grid, kThreads, smem, stream>>>(
+  flash_fwd<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H / KH, S, D, causal, scale_log2, sq, sk, sv, so);
+      static_cast<T*>(o), H / KH, S, D, Dv, causal, scale_log2, sq, sk, sv, so);
   return cudaGetLastError();
+}
+
+// The instantiation for a head-dim pair: Dqk in buckets of 64, 128, 192 and
+// Dv in buckets of 64, 128.
+template <typename T>
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
+                     int KH, int S, int D, int Dv, int causal, float scale_log2, Strides sq,
+                     Strides sk, Strides sv, Strides so, cudaStream_t st) {
+#define REPRO_FLASH_LAUNCH(DQK, DV) \
+  launch<T, DQK, DV>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq, sk, sv, so, st)
+  if (D <= 64) return Dv <= 64 ? REPRO_FLASH_LAUNCH(64, 64) : REPRO_FLASH_LAUNCH(64, 128);
+  if (D <= 128) return Dv <= 64 ? REPRO_FLASH_LAUNCH(128, 64) : REPRO_FLASH_LAUNCH(128, 128);
+  return Dv <= 64 ? REPRO_FLASH_LAUNCH(192, 64) : REPRO_FLASH_LAUNCH(192, 128);
+#undef REPRO_FLASH_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
-// q, o: (B, H, S, D); k, v: (B, KH, S, D), addressed through the given strides
-// (elements; D contiguous).  dtype: 0 = float32, 1 = bfloat16.  scale_log2 is
+// q: (B, H, S, D); k: (B, KH, S, D); v: (B, KH, S, Dv); o: (B, H, S, Dv),
+// addressed through the given strides (elements; the last dim contiguous).
+// D <= 192, Dv <= 128.  dtype: 0 = float32, 1 = bfloat16.  scale_log2 is
 // log2(e) / sqrt(D).  Returns cudaGetLastError() after the launch.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
-                              int dtype, int B, int H, int KH, int S, int D, int causal,
-                              float scale_log2, long long sqb, long long sqh,
+                              int dtype, int B, int H, int KH, int S, int D, int Dv,
+                              int causal, float scale_log2, long long sqb, long long sqh,
                               long long sqs, long long skb, long long skh, long long sks,
                               long long svb, long long svh, long long svs, long long sob,
                               long long soh, long long sos, void* stream) {
-  if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || D <= 0 || D > 128 ||
-      H > 65535 || B > 65535 || (dtype != 0 && dtype != 1))
+  if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || D <= 0 || D > 192 ||
+      Dv <= 0 || Dv > 128 || H > 65535 || B > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs}, so{sob, soh, sos};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)(D <= 64 ? launch<float, 64>(q, k, v, o, B, H, KH, S, D, causal, scale_log2, sq, sk, sv, so, st)
-                         : launch<float, 128>(q, k, v, o, B, H, KH, S, D, causal, scale_log2, sq, sk, sv, so, st));
-  return (int)(D <= 64 ? launch<__nv_bfloat16, 64>(q, k, v, o, B, H, KH, S, D, causal, scale_log2, sq, sk, sv, so, st)
-                       : launch<__nv_bfloat16, 128>(q, k, v, o, B, H, KH, S, D, causal, scale_log2, sq, sk, sv, so, st));
+    return (int)dispatch<float>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq, sk,
+                                sv, so, st);
+  return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq,
+                                      sk, sv, so, st);
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -3,10 +3,11 @@
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention.py:31
 // (_flash_kernel; wrapper flash_attention :112) for the inputs that
-// repro_torch/kernels/flash_attention.py:_variant sends here: bf16, head dim a
-// multiple of 8 up to 128, 16-byte-aligned base pointers, b/h/s strides that
-// are positive multiples of 8 elements.  The rest (f32, odd D, unaligned
-// strides) keeps the CUDA-core kernel in flash_attention.cu.  It computes what
+// repro_torch/kernels/flash_attention.py:_variant sends here: bf16, head dims
+// multiples of 8 (q and k up to 192, v up to 128), 16-byte-aligned base
+// pointers, b/h/s strides that are positive multiples of 8 elements.  The
+// rest (f32, odd head dims, unaligned strides) keeps the CUDA-core kernel in
+// flash_attention.cu.  It computes what
 // _flash_kernel computes: causal or full GQA attention (q head h reads kv head
 // h / (H / KH)) with an online softmax, f32 running max, denominator and
 // accumulator, scores never written to device memory, output
@@ -34,8 +35,8 @@
 //     L2), K and V tiles of 128 keys into a 3-stage ring in shared memory
 //     with full barriers for K and V (mbarrier transaction counts) and an
 //     empty barrier that the 8 consumer warps arrive on once P.V has read
-//     the stage.  It runs ahead into the next item while the consumers finish
-//     the current one.  The tensor maps are 4-D (D, S, heads, B) over the
+//     the stage (a 2-stage ring frees K and V apart, below).  It runs ahead
+//     into the next item while the consumers finish the current one.  The tensor maps are 4-D (D, S, heads, B) over the
 //     caller's strides, so (B, S, H, D) tensors viewed as (B, H, S, D) load
 //     without a copy; TMA zero-fills past S and past D, so D <= 64 runs as
 //     one 64-column 128-byte-swizzled atom and 64 < D <= 128 (D = 80 too)
@@ -58,11 +59,33 @@
 //     them take turns, as FA3 does, measured slower here);
 //   * under `causal` the key loop stops at the item's diagonal tile;
 //   * the output is written as bf16 pairs straight from the accumulator
-//     registers through the output strides, rows >= S and columns >= D
+//     registers through the output strides, rows >= S and columns >= Dv
 //     masked.
 // ptxas (CUDA 12.9, sm_90a): 168 registers at launch for both head-dim
 // buckets (the consumers run under setmaxnreg 232), no spills; chip_smoke.py
 // prints the build log's lines.
+//
+// Two head dims.  q and k have Dqk columns and v and the output Dv, as
+// DeepSeek-V2's multi-head latent attention needs (Dqk 192 = 128 + 64 rope
+// columns, Dv 128, one K per head).  The kernel is a template on both
+// buckets: (64, 64) and (128, 128), the single head dim's instantiations
+// unchanged, and (192, 128).  At (192, 128) S = Q.K^T runs over twelve
+// k-steps of 16 across three 64-column atoms, and P.V keeps the 128-column
+// accumulator, so the consumers' registers are the (128, 128) bucket's.
+// Shared memory, against the 227 KB (232,448 bytes) an SM offers a block:
+//   (64, 64):   Q 16 KB + 3 stages x (K 16 KB + V 16 KB) = 112 KB;
+//   (128, 128): Q 32 KB + 3 stages x (K 32 KB + V 32 KB) = 224 KB;
+//   (192, 128): Q 48 KB + 3 stages x (K 48 KB + V 32 KB) = 288 KB does not
+//               fit, so this bucket keeps 2 stages: 208 KB;
+// each plus 8 bytes per barrier (2 + 4 x stages) and 1 KB for the
+// alignment; v is not padded to 192.  With one empty barrier per stage, a
+// 2-stage ring would load K and V tile t + 1 only once P_{t-1}.V_{t-1} is
+// done, half an iteration before K_{t+1} is read.  So a 2-stage ring has
+// empty barriers for K and V apart: the consumers free K_t's stage once
+// Q.K_t^T is done and V's once P.V is, and K tile t + 1 loads an iteration
+// earlier (PERF.md §6 gives the (192, 128) bucket's train-shape time before
+// and after).  The 3-stage buckets keep one empty barrier per stage: they
+// already load a full iteration ahead.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up at run time
 #include <cuda_bf16.h>
@@ -75,7 +98,8 @@ namespace {
 
 constexpr int kBlockM = 128;                   // query rows per block
 constexpr int kBlockN = 128;                   // keys per K/V tile
-constexpr int kStages = 3;                     // depth of the K/V ring
+constexpr int kMaxStages = 3;                  // depth of the K/V ring where it fits
+constexpr uint32_t kSmemLimit = 232448;        // an SM's shared memory for one block
 constexpr int kConsumers = 2;                  // consumer warpgroups, 64 rows each
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kAtomCols = 64;                  // bf16 columns in one 128-byte row
@@ -83,24 +107,38 @@ constexpr uint32_t kAtomBytes = 128 * 128;     // 128 rows x 128 bytes
 static_assert(kBlockM == 128 && kBlockN == 128, "an atom holds 128 rows of a tile");
 
 // Shared memory, from a 1024-byte-aligned base: Q, the K ring, the V ring
-// (each tile DMAX / 64 atoms), then the barriers full_q, empty_q,
-// full_k[kStages], full_v[kStages], empty[kStages].
-template <int DMAX>
+// (Q and K tiles DQK / 64 atoms, V tiles DV / 64), then the barriers full_q,
+// empty_q, full_k[kStages], full_v[kStages], empty_k[kStages] (used by a
+// 2-stage ring only), empty_v[kStages] (the stage's, or its V's).  kStages
+// is kMaxStages where that fits in kSmemLimit, else 2.
+constexpr uint32_t smem_bytes(int dqk, int dv, int stages) {
+  return (dqk + stages * (dqk + dv)) / kAtomCols * kAtomBytes + 8 * (2 + 4 * stages) +
+         1024;  // + alignment
+}
+
+template <int DQK, int DV>
 struct Smem {
-  static constexpr int kAtoms = DMAX / kAtomCols;
-  static constexpr uint32_t kTile = kAtoms * kAtomBytes;
+  static constexpr int kAtomsQK = DQK / kAtomCols;
+  static constexpr int kAtomsV = DV / kAtomCols;
+  static constexpr uint32_t kTileQK = kAtomsQK * kAtomBytes;
+  static constexpr uint32_t kTileV = kAtomsV * kAtomBytes;
+  static constexpr int kStages =
+      smem_bytes(DQK, DV, kMaxStages) <= kSmemLimit ? kMaxStages : 2;
+  static constexpr bool kSplitEmpty = kStages == 2;  // K and V freed apart
   static constexpr uint32_t kQ = 0;
-  static constexpr uint32_t kK = kQ + kTile;
-  static constexpr uint32_t kV = kK + kStages * kTile;
-  static constexpr uint32_t kBar = kV + kStages * kTile;
-  static constexpr uint32_t kBytes = kBar + 8 * (2 + 3 * kStages) + 1024;  // + alignment
+  static constexpr uint32_t kK = kQ + kTileQK;
+  static constexpr uint32_t kV = kK + kStages * kTileQK;
+  static constexpr uint32_t kBar = kV + kStages * kTileV;
+  static constexpr uint32_t kBytes = smem_bytes(DQK, DV, kStages);
+  static_assert(kBytes <= kSmemLimit, "the Q tile and two K/V stages must fit");
 };
 
 struct Strides {  // in elements; the last (D) stride is 1
   long long b, h, s;
 };
 
-struct Ring {  // a position in the K/V ring: stage and the parity of its use
+template <int kStages>
+struct RingT {  // a position in the K/V ring: stage and the parity of its use
   int stage = 0, phase = 0;
   __device__ __forceinline__ void advance() {
     if (++stage == kStages) {
@@ -297,28 +335,29 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
 // register i of lane l holds row 16 w + l / 4 + 8 ((i / 2) % 2), column
 // 8 (i / 4) + 2 (l % 4) + i % 2.  Below, r = (i / 2) % 2 picks the row.
 
-// S = Q . K^T for the warpgroup's 64 rows and a tile of 128 keys: D / 16
-// k-steps; past 64 columns the next atom.
-template <int DMAX>
+// S = Q . K^T for the warpgroup's 64 rows and a tile of 128 keys: DQK / 16
+// k-steps; every 64 columns the next atom.
+template <int DQK>
 __device__ __forceinline__ void issue_qk(float (&sc)[kBlockN / 2], uint32_t q_addr,
                                          uint32_t k_addr) {
   const uint64_t dq = desc_sw128(q_addr, 16, 1024), dk = desc_sw128(k_addr, 16, 1024);
 #pragma unroll
-  for (int kk = 0; kk < DMAX / 16; ++kk) {
+  for (int kk = 0; kk < DQK / 16; ++kk) {
     const uint32_t off = ((kk / 4) * kAtomBytes + (kk % 4) * 32) >> 4;  // 16-byte units
     wgmma_ss_m64n128(sc, dq + off, dk + off, kk > 0);
   }
 }
 
-// O += P . V: V is 128 keys x D with D contiguous (MN-major); k-step j starts
-// 16 rows (2048 bytes) further, the second 64-column atom kAtomBytes further.
-template <int DMAX>
-__device__ __forceinline__ void issue_pv(float (&acc)[DMAX / 2],
+// O += P . V: V is 128 keys x Dv with Dv contiguous (MN-major); k-step j
+// starts 16 rows (2048 bytes) further, the second 64-column atom kAtomBytes
+// further.
+template <int DV>
+__device__ __forceinline__ void issue_pv(float (&acc)[DV / 2],
                                          const uint32_t (&p)[kBlockN / 16][4], uint32_t v_addr) {
   const uint64_t dv = desc_sw128(v_addr, kAtomBytes, 1024);
 #pragma unroll
   for (int j = 0; j < kBlockN / 16; ++j) {
-    if constexpr (DMAX == 64)
+    if constexpr (DV == 64)
       wgmma_rs_m64n64(acc, p[j], dv + j * 16 * 128 / 16);
     else
       wgmma_rs_m64n128(acc, p[j], dv + j * 16 * 128 / 16);
@@ -412,19 +451,22 @@ __device__ __forceinline__ Item item(int w, int H, int B, int S, int causal) {
   return it;
 }
 
-template <int DMAX>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int H,
-                int B, int group, int S, int D, int causal, float scale_log2, Strides so) {
-  using L = Smem<DMAX>;
+                int B, int group, int S, int Dv, int causal, float scale_log2, Strides so) {
+  using L = Smem<DQK, DV>;
+  constexpr int kStages = L::kStages;
+  using Ring = RingT<kStages>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t bar_q = base + L::kBar;
   const uint32_t bar_q_empty = bar_q + 8;
   const uint32_t bar_k = bar_q + 16;                // + 8 * stage
   const uint32_t bar_v = bar_k + 8 * kStages;
-  const uint32_t bar_empty = bar_v + 8 * kStages;
+  const uint32_t bar_empty_k = bar_v + 8 * kStages;
+  const uint32_t bar_empty_v = bar_empty_k + 8 * kStages;
   const int n_items = H * B * ((S + kBlockM - 1) / kBlockM);
   const int wg = threadIdx.x / 128;
 
@@ -434,7 +476,8 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
     for (int s = 0; s < kStages; ++s) {
       mbar_init(bar_k + 8 * s, 1);
       mbar_init(bar_v + 8 * s, 1);
-      mbar_init(bar_empty + 8 * s, kConsumers * 4);
+      mbar_init(bar_empty_k + 8 * s, kConsumers * 4);
+      mbar_init(bar_empty_v + 8 * s, kConsumers * 4);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -450,24 +493,25 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         const Item it = item(w, H, B, S, causal);
         const int kvh = it.h / group;
         mbar_wait(bar_q_empty, (n & 1) ^ 1);
-        mbar_expect_tx(bar_q, L::kTile);
-        for (int a = 0; a < L::kAtoms; ++a)
+        mbar_expect_tx(bar_q, L::kTileQK);
+        for (int a = 0; a < L::kAtomsQK; ++a)
           tma_load(base + L::kQ + a * kAtomBytes, &tm_q, bar_q, a * kAtomCols, it.q0, it.h, it.b);
         if (item_index(n + 1) < n_items) {  // the next item's Q into L2, ahead of its load
           const Item next = item(item_index(n + 1), H, B, S, causal);
-          for (int a = 0; a < L::kAtoms; ++a)
+          for (int a = 0; a < L::kAtomsQK; ++a)
             tma_prefetch_l2(&tm_q, a * kAtomCols, next.q0, next.h, next.b);
         }
         for (int t = 0; t < it.n_tiles; ++t, ring.advance()) {
           const int s = ring.stage;
-          mbar_wait(bar_empty + 8 * s, ring.phase ^ 1);
-          mbar_expect_tx(bar_k + 8 * s, L::kTile);
-          for (int a = 0; a < L::kAtoms; ++a)
-            tma_load(base + L::kK + s * L::kTile + a * kAtomBytes, &tm_k, bar_k + 8 * s,
+          mbar_wait((L::kSplitEmpty ? bar_empty_k : bar_empty_v) + 8 * s, ring.phase ^ 1);
+          mbar_expect_tx(bar_k + 8 * s, L::kTileQK);
+          for (int a = 0; a < L::kAtomsQK; ++a)
+            tma_load(base + L::kK + s * L::kTileQK + a * kAtomBytes, &tm_k, bar_k + 8 * s,
                      a * kAtomCols, t * kBlockN, kvh, it.b);
-          mbar_expect_tx(bar_v + 8 * s, L::kTile);
-          for (int a = 0; a < L::kAtoms; ++a)
-            tma_load(base + L::kV + s * L::kTile + a * kAtomBytes, &tm_v, bar_v + 8 * s,
+          if (L::kSplitEmpty) mbar_wait(bar_empty_v + 8 * s, ring.phase ^ 1);
+          mbar_expect_tx(bar_v + 8 * s, L::kTileV);
+          for (int a = 0; a < L::kAtomsV; ++a)
+            tma_load(base + L::kV + s * L::kTileV + a * kAtomBytes, &tm_v, bar_v + 8 * s,
                      a * kAtomCols, t * kBlockN, kvh, it.b);
         }
       }
@@ -475,9 +519,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   } else {
     // consumers: warpgroup wg owns query rows q0 + 64 wg .. q0 + 64 wg + 63 of
     // each item.  Iteration t issues S_t = Q K_t^T and then
-    // O += P_{t-1} V_{t-1}, waits for S_t only and runs its softmax while the
-    // tensor cores do P.V; then waits for P.V, frees that stage and rescales
-    // O.
+    // O += P_{t-1} V_{t-1}, waits for S_t only (in a 2-stage ring frees
+    // K_t) and runs its softmax while the tensor cores do P.V; then waits for
+    // P.V, frees V_{t-1}'s stage and rescales O.
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
     const int lane = threadIdx.x % 32, warp = (threadIdx.x % 128) / 32;
     const uint32_t q_addr = base + L::kQ + 64 * wg * 128;
@@ -489,9 +533,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       const int wg_row = it.q0 + 64 * wg;
       const int row0 = wg_row + 16 * warp + lane / 4;  // this thread's rows: row0, row0 + 8
 
-      float acc[DMAX / 2];
+      float acc[DV / 2];
 #pragma unroll
-      for (int i = 0; i < DMAX / 2; ++i) acc[i] = 0.f;
+      for (int i = 0; i < DV / 2; ++i) acc[i] = 0.f;
       float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
       float sc[kBlockN / 2];
       uint32_t p[kBlockN / 16][4];  // bf16 P of the tile whose P.V is pending
@@ -499,10 +543,11 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       mbar_wait(bar_q, n & 1);
       mbar_wait(bar_k + 8 * ring.stage, ring.phase);
       wgmma_fence();
-      issue_qk<DMAX>(sc, q_addr, k_ring + ring.stage * L::kTile);
+      issue_qk<DQK>(sc, q_addr, k_ring + ring.stage * L::kTileQK);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(sc);
+      if (L::kSplitEmpty && lane == 0) mbar_arrive(bar_empty_k + 8 * ring.stage);
       softmax_at(sc, m, l, corr, 0, wg_row, row0, S, causal, scale_log2, lane);
       pack_p(sc, p);  // O is still 0: nothing to rescale
       Ring prev = ring;  // the tile whose P.V is pending
@@ -514,19 +559,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         mbar_wait(bar_k + 8 * s, ring.phase);
         mbar_wait(bar_v + 8 * sp, prev.phase);
         wgmma_fence();
-        issue_qk<DMAX>(sc, q_addr, k_ring + s * L::kTile);
+        issue_qk<DQK>(sc, q_addr, k_ring + s * L::kTileQK);
         wgmma_commit();
-        issue_pv<DMAX>(acc, p, v_ring + sp * L::kTile);
+        issue_pv<DV>(acc, p, v_ring + sp * L::kTileV);
         wgmma_commit();
         wgmma_wait<1>();
         fence_regs(sc);
+        if (L::kSplitEmpty && lane == 0) mbar_arrive(bar_empty_k + 8 * s);
         softmax_at(sc, m, l, corr, k0, wg_row, row0, S, causal, scale_log2, lane);
         wgmma_wait<0>();
         fence_regs(acc);
         fence_regs(p);
-        if (lane == 0) mbar_arrive(bar_empty + 8 * sp);
+        if (lane == 0) mbar_arrive(bar_empty_v + 8 * sp);
 #pragma unroll
-        for (int i = 0; i < DMAX / 2; ++i) acc[i] *= corr[(i / 2) % 2];
+        for (int i = 0; i < DV / 2; ++i) acc[i] *= corr[(i / 2) % 2];
         pack_p(sc, p);
       }
       // every product with Q is done: the producer may load the next item's
@@ -534,19 +580,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
       const int sl = prev.stage;
       mbar_wait(bar_v + 8 * sl, prev.phase);
       wgmma_fence();
-      issue_pv<DMAX>(acc, p, v_ring + sl * L::kTile);
+      issue_pv<DV>(acc, p, v_ring + sl * L::kTileV);
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(acc);
-      if (lane == 0) mbar_arrive(bar_empty + 8 * sl);
+      if (lane == 0) mbar_arrive(bar_empty_v + 8 * sl);
 
       const float inv0 = 1.f / fmaxf(quad_sum(l[0]), 1e-20f);
       const float inv1 = 1.f / fmaxf(quad_sum(l[1]), 1e-20f);
       __nv_bfloat16* ob = o + it.b * so.b + it.h * so.h;
 #pragma unroll
-      for (int j = 0; j < DMAX / 8; ++j) {
+      for (int j = 0; j < DV / 8; ++j) {
         const int col = 8 * j + 2 * (lane % 4);
-        if (col >= D) continue;
+        if (col >= Dv) continue;
         if (row0 < S)
           *reinterpret_cast<uint32_t*>(ob + row0 * so.s + col) =
               pack_bf16(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
@@ -595,12 +641,12 @@ bool make_map(CUtensorMap* map, const void* ptr, int D, int S, int heads, int B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DMAX>
+template <int DQK, int DV>
 cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, void* o,
-                   int B, int H, int KH, int S, int D, int causal, float scale_log2, Strides so,
+                   int B, int H, int KH, int S, int Dv, int causal, float scale_log2, Strides so,
                    cudaStream_t stream) {
-  constexpr int smem = Smem<DMAX>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<DMAX>,
+  constexpr int smem = Smem<DQK, DV>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(flash_fwd_wgmma<DQK, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   int device = 0, sms = 0;
@@ -609,8 +655,8 @@ cudaError_t launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorM
     return err;
   const long long items = (long long)H * B * ((S + kBlockM - 1) / kBlockM);
   const int grid = (int)(items < sms ? items : sms);  // persistent: one block per SM
-  flash_fwd_wgmma<DMAX><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, B, H / KH, S, D, causal, scale_log2, so);
+  flash_fwd_wgmma<DQK, DV><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(o), H, B, H / KH, S, Dv, causal, scale_log2, so);
   return cudaGetLastError();
 }
 
@@ -623,31 +669,37 @@ bool fits(const void* ptr, Strides st) {
 
 extern "C" {
 
-// The signature of repro_flash_attention_fwd (flash_attention.cu): q, o
-// (B, H, S, D); k, v (B, KH, S, D), addressed through the given strides
-// (elements; D contiguous).  dtype must be 1 (bfloat16), D a multiple of 8 up
-// to 128, q/k/v 16-byte aligned with b/h/s strides positive multiples of 8.
-// scale_log2 is log2(e) / sqrt(D).  Returns cudaGetLastError() after the
-// launch, or the error that kept it from launching.
+// The signature of repro_flash_attention_fwd (flash_attention.cu): q
+// (B, H, S, D), k (B, KH, S, D), v (B, KH, S, Dv), o (B, H, S, Dv), addressed
+// through the given strides (elements; the last dim contiguous).  dtype must
+// be 1 (bfloat16), D and Dv multiples of 8 with either D, Dv <= 128 or
+// D <= 192, Dv <= 128, q/k/v 16-byte aligned with b/h/s strides positive
+// multiples of 8.  scale_log2 is log2(e) / sqrt(D).  Returns
+// cudaGetLastError() after the launch, or the error that kept it from
+// launching.
 int repro_flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
-                                    int dtype, int B, int H, int KH, int S, int D, int causal,
-                                    float scale_log2, long long sqb, long long sqh, long long sqs,
-                                    long long skb, long long skh, long long sks, long long svb,
-                                    long long svh, long long svs, long long sob, long long soh,
-                                    long long sos, void* stream) {
+                                    int dtype, int B, int H, int KH, int S, int D, int Dv,
+                                    int causal, float scale_log2, long long sqb, long long sqh,
+                                    long long sqs, long long skb, long long skh, long long sks,
+                                    long long svb, long long svh, long long svs, long long sob,
+                                    long long soh, long long sos, void* stream) {
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs}, so{sob, soh, sos};
-  if (dtype != 1 || B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || D <= 0 || D > 128 ||
-      D % 8 != 0 || (long long)H * B * ((S + kBlockM - 1) / kBlockM) > INT_MAX || !fits(q, sq) ||
+  if (dtype != 1 || B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || D <= 0 || D > 192 ||
+      D % 8 != 0 || Dv <= 0 || Dv > 128 || Dv % 8 != 0 ||
+      (long long)H * B * ((S + kBlockM - 1) / kBlockM) > INT_MAX || !fits(q, sq) ||
       !fits(k, sk) || !fits(v, sv))
     return (int)cudaErrorInvalidValue;
   if (encode_fn() == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap mq, mk, mv;
   if (!make_map(&mq, q, D, S, H, B, sq) || !make_map(&mk, k, D, S, KH, B, sk) ||
-      !make_map(&mv, v, D, S, KH, B, sv))
+      !make_map(&mv, v, Dv, S, KH, B, sv))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(D <= 64 ? launch<64>(mq, mk, mv, o, B, H, KH, S, D, causal, scale_log2, so, st)
-                       : launch<128>(mq, mk, mv, o, B, H, KH, S, D, causal, scale_log2, so, st));
+  // the (DQK, DV) bucket: one head-dim bucket for both up to 128, else (192, 128)
+  const int d = D > Dv ? D : Dv;
+  if (D > 128) return (int)launch<192, 128>(mq, mk, mv, o, B, H, KH, S, Dv, causal, scale_log2, so, st);
+  return (int)(d <= 64 ? launch<64, 64>(mq, mk, mv, o, B, H, KH, S, Dv, causal, scale_log2, so, st)
+                       : launch<128, 128>(mq, mk, mv, o, B, H, KH, S, Dv, causal, scale_log2, so, st));
 }
 
 const char* repro_cuda_error_string(int err) {

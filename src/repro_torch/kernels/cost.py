@@ -2,7 +2,7 @@
 
 Bytes count each input read once and each output written once; FLOPs count
 what the kernel computes on these inputs (flash attention: the two matrix
-products over the (query, key) pairs it visits, 2·D multiply-adds each).
+products over the (query, key) pairs it visits, D + D_v multiply-adds each).
 One copy of these counts serves both ``chip_smoke.py`` (each kernel's bound:
 the larger of bytes over the card's memory rate and FLOPs over its peak) and
 the analytical trace route (``core.analytical``), which prices each kernel's
@@ -16,12 +16,14 @@ from typing import Optional, Tuple
 
 
 def flash_attention(B: int, H: int, KH: int, S: int, D: int, *,
-                    causal: bool = True, itemsize: int = 2
-                    ) -> Tuple[float, float]:
-    """q, o: (B, H, S, D); k, v: (B, KH, S, D); elements of ``itemsize``."""
+                    D_v: Optional[int] = None, causal: bool = True,
+                    itemsize: int = 2) -> Tuple[float, float]:
+    """q: (B, H, S, D), k: (B, KH, S, D), v: (B, KH, S, D_v), o: (B, H, S, D_v)
+    (``D_v`` defaults to ``D``); elements of ``itemsize``."""
+    Dv = D if D_v is None else D_v
     pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
-    return 4.0 * D * pairs, float(itemsize * (2 * B * H * S * D
-                                              + 2 * B * KH * S * D))
+    return 2.0 * (D + Dv) * pairs, float(itemsize * (B * H * S * (D + Dv)
+                                                      + B * KH * S * (D + Dv)))
 
 
 def rmsnorm(rows: int, D: int, *, itemsize: int = 2,

@@ -6,13 +6,18 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 from dtype, head dim, base pointers and strides alone, before the launch:
 
 * ``"wgmma"``, ``repro_torch/csrc/flash_attention_wgmma.cu``: bf16 with
-  D % 8 == 0, 16-byte-aligned base pointers and b/h/s strides that are
-  positive multiples of 8 elements (what its TMA loads need); both products
-  on the tensor cores;
+  both head dims multiples of 8 (q/k's ``D`` up to 192, v's ``D_v`` up to
+  128), 16-byte-aligned base pointers and b/h/s strides that are positive
+  multiples of 8 elements (what its TMA loads need); both products on the
+  tensor cores;
 * ``"scalar"``, ``repro_torch/csrc/flash_attention.cu``: everything else, on
   the f32 CUDA cores.  f32 stays there because it must meet atol 2e-3, which
-  TF32 tensor cores do not; bf16 with an odd D or unaligned strides goes
-  there too.
+  TF32 tensor cores do not; bf16 with an odd head dim or unaligned strides
+  goes there too.
+
+q and k share one head dim ``D`` and v and the output have their own,
+``D_v`` (DeepSeek-V2's MLA: 192 and 128); ``D <= 192`` and ``D_v <= 128``.
+The scale is ``1/sqrt(D)``.
 
 A build or launch error of either kernel raises; nothing falls back to the
 other.  Each source carries its kernel's note: what bounds it on the H100 and
@@ -44,6 +49,7 @@ launches = 0   # kernel launches since the last reset (see ops.launch_counts)
 launches_by_variant = {"wgmma": 0, "scalar": 0}   # the same launches, per kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_D, MAX_D_V = 192, 128   # q/k's and v's largest head dims
 _LIBS = {"scalar": ("flash_attention", "repro_flash_attention_fwd"),
          "wgmma": ("flash_attention_wgmma", "repro_flash_attention_wgmma_fwd")}
 
@@ -53,7 +59,7 @@ def _fn(variant: str):
     lib_name, symbol = _LIBS[variant]
     lib = _build.load(lib_name)
     fn = getattr(lib, symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -63,9 +69,10 @@ def _fn(variant: str):
 
 def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"wgmma"`` where the tensor-core kernel takes q, k, v, else
-    ``"scalar"``: from dtype, head dim, base pointers and strides only."""
-    D = q.shape[-1]
-    if q.dtype != torch.bfloat16 or D % 8 or D > 128:
+    ``"scalar"``: from dtype, head dims, base pointers and strides only."""
+    D, Dv = q.shape[-1], v.shape[-1]
+    if (q.dtype != torch.bfloat16 or D % 8 or Dv % 8 or D > MAX_D
+            or Dv > MAX_D_V):
         return "scalar"
     for t in (q, k, v):
         if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in t.stride()[:3]):
@@ -74,16 +81,20 @@ def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or v.shape[:3] != k.shape[:3]:
         raise ValueError(f"flash_attention: bad shapes q={tuple(q.shape)} "
-                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
+                         f"k={tuple(k.shape)} v={tuple(v.shape)} (need v's "
+                         "B, KH, S equal to k's)")
     B, H, S, D = q.shape
     KH = k.shape[1]
     if k.shape[0] != B or k.shape[2] != S or k.shape[3] != D or H % KH:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not match "
                          f"q {tuple(q.shape)} (need (B, KH, S, D), H % KH == 0)")
-    if not 0 < D <= 128:
-        raise ValueError(f"flash_attention: head dim {D} not in 1..128")
+    if not 0 < D <= MAX_D:
+        raise ValueError(f"flash_attention: q/k head dim {D} not in 1..{MAX_D}")
+    if not 0 < v.shape[3] <= MAX_D_V:
+        raise ValueError(f"flash_attention: v head dim {v.shape[3]} not in "
+                         f"1..{MAX_D_V}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: dtypes {q.dtype}/{k.dtype}/{v.dtype}"
                         "; need all float32 or all bfloat16")
@@ -95,11 +106,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True) -> torch.Tensor:
-    """q: (B, H, S, D); k/v: (B, KH, S, D), CUDA, f32 or bf16 -> (B, H, S, D).
+    """q: (B, H, S, D); k: (B, KH, S, D); v: (B, KH, S, D_v), CUDA, f32 or
+    bf16 -> (B, H, S, D_v).
 
     Any strides with a contiguous last dimension; the output has q's memory
-    layout (``empty_like``), so a (B, S, H, D) tensor passed as a transposed
-    view comes back the same way.  The kernel is ``_variant``'s choice.
+    layout (``_out``), so a (B, S, H, D) tensor passed as a transposed view
+    comes back the same way.  The kernel is ``_variant``'s choice.
     """
     _check(q, k, v)
     return _launch(_variant(q, k, v), q, k, v, causal)
@@ -113,14 +125,26 @@ def flash_attention_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _launch("scalar", q, k, v, causal)
 
 
+def _out(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The output: (B, H, S, D_v) in q's dtype, device and memory layout
+    (its dims in the order of q's strides), ``empty_like(q)`` where
+    ``D_v == D``."""
+    if v.shape[-1] == q.shape[-1]:
+        return torch.empty_like(q)
+    order = sorted(range(4), key=lambda i: -q.stride(i))      # outermost first
+    shape = tuple(q.shape[:3]) + (v.shape[-1],)
+    o = torch.empty([shape[i] for i in order], dtype=q.dtype, device=q.device)
+    return o.permute([order.index(i) for i in range(4)])
+
+
 def _launch(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             causal: bool) -> torch.Tensor:
     global launches
     B, H, S, D = q.shape
-    o = torch.empty_like(q)
+    o = _out(q, v)
     fn, err_str = _fn(variant)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             _DTYPES[q.dtype], B, H, k.shape[1], S, D, int(causal),
+             _DTYPES[q.dtype], B, H, k.shape[1], S, D, v.shape[-1], int(causal),
              math.log2(math.e) / math.sqrt(D),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
              torch.cuda.current_stream(q.device).cuda_stream)
@@ -134,13 +158,13 @@ def _launch(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 _META_LIB = meta_library(
     "flash_attention(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
-    lambda q, k, v, causal: torch.empty_like(q))
+    lambda q, k, v, causal: _out(q, v))
 
 
 def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool) -> torch.Tensor:
-    """The kernel's launch on meta tensors: its output, ``empty_like(q)`` as
-    ``_launch`` allocates it, and nothing computed or counted."""
+    """The kernel's launch on meta tensors: its output, (B, H, S, D_v) as
+    ``_launch`` allocates it (``_out``), and nothing computed or counted."""
     return torch.ops.repro_torch.flash_attention(q, k, v, causal)
 
 

@@ -29,7 +29,8 @@ _KERNELS = {"flash_attention": _fa, "rmsnorm": _rn, "fused_adam": _ad,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
-    """q: (B, H, S, D); k/v: (B, KH, S, D) -> (B, H, S, D) in q's dtype.
+    """q: (B, H, S, D); k: (B, KH, S, D); v: (B, KH, S, D_v) -> (B, H, S, D_v)
+    in q's dtype (D <= 192, D_v <= 128; the scale is ``1/sqrt(D)``).
 
     ``block_q``/``block_k`` are the reference's tile keywords, accepted so its
     callers run unchanged and ignored: the CUDA kernels choose their tiles."""

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the kernels (the allclose ground truth).
 
-Same math as ``repro/kernels/ref.py``: f32 arithmetic, ``1/sqrt(D)`` scale,
-causal ``-inf`` mask, output in the input dtype; the k-th magnitude as the
-DGC threshold.  The backward functions are the plain backwards of the two
+Same math as ``repro/kernels/ref.py``: f32 arithmetic, ``1/sqrt(D)`` scale
+(q and k's head dim; v may have its own, ``D_v``, as in the reference's
+``chunked_attention``), causal ``-inf`` mask, output in the input dtype;
+the k-th magnitude as the DGC threshold.  The backward functions are the plain backwards of the two
 forward kernels (neither TPU kernel has a backward kernel): they recompute
 the forward from the saved inputs and differentiate it with autograd.
 """
@@ -37,7 +38,8 @@ def _attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         causal: bool = True) -> torch.Tensor:
-    """q: (B, H, S, D); k/v: (B, KH, S, D) — naive full-score attention."""
+    """q: (B, H, S, D); k: (B, KH, S, D); v: (B, KH, S, D_v) -> (B, H, S, D_v):
+    naive full-score attention, scaled by ``1/sqrt(D)``."""
     return _attention(q, k, v, causal).to(q.dtype)
 
 

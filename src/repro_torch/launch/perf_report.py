@@ -29,8 +29,8 @@ nothing is allocated.  The report then
 Meshes are not ported, so the traced program has no collectives
 (``collective_s`` is 0): ``--cluster N`` and ``--what-if ddp,...`` insert
 them as on every other route, and ``--mesh multi`` raises.  Only train
-shapes of data-parallel (``layout="dp"``) configs, and of moe configs (all
-experts on the device), are traced.
+shapes of data-parallel (``layout="dp"``) configs, and of moe and mla_moe
+configs (all experts on the device), are traced.
 
 Trace-import route (no trace of a model): import per-worker profiler
 captures (torch.profiler captures of the port's step, Chrome trace-event
@@ -79,14 +79,16 @@ def trace_cell(cfg, shape, chips: int = CHIPS, cost=None):
     """``trace_compiled`` of one device's train step at ``shape`` on meta
     tensors: ``make_train_step(cfg, AdamW(fused=True))`` on a batch of
     ``global_batch // chips`` sequences (the data-parallel program each of
-    ``chips`` devices runs).  A moe config's expert-parallel layout ("v2")
-    is traced as that data-parallel program with every expert on the
-    device: the reference's expert all-to-all is not in it (ROADMAP C16).
+    ``chips`` devices runs).  A moe or mla_moe config's expert-parallel
+    layout ("v2") is traced as that data-parallel program with every expert
+    on the device: the reference's expert all-to-all is not in it (ROADMAP
+    C16).
     Returns the :class:`TraceBundle`."""
     if shape.kind != "train":
         raise SystemExit(f"the compiled route traces train steps only; "
                          f"{shape.name} is a {shape.kind} shape")
-    if cfg.layout != "dp" and not (cfg.family == "moe" and cfg.layout == "v2"):
+    if cfg.layout != "dp" and not (cfg.family in ("moe", "mla_moe")
+                                   and cfg.layout == "v2"):
         raise SystemExit(f"layout {cfg.layout!r} shards the step over a mesh, "
                          f"which is not ported yet (ROADMAP A10); the "
                          f"compiled route traces layout='dp' only")
@@ -129,14 +131,24 @@ def flash_traffic(cfg, shape, chips: int) -> float:
 
     fwd + bwd-recompute + bwd = 3 kernel passes (bwd reads dO too: 4th
     tensor stream folded into the factor), each streaming q, k, v, o once.
-    Train shapes double for the gradient outputs.
+    Train shapes double for the gradient outputs.  q and k have the head
+    dim ``D``, v and o ``D_v`` (``flash_head_dims``).
     """
     B, S = shape.global_batch, shape.seq_len
-    hd = cfg.head_dim or cfg.d_model // max(cfg.n_heads, 1)
-    per_pass = 4 * B * S * cfg.n_heads * hd * 2          # q,k,v,o bf16
+    D, Dv = flash_head_dims(cfg)
+    per_pass = 2 * B * S * cfg.n_heads * (D + Dv) * 2    # q,k,v,o bf16
     passes = 3.0 if shape.kind == "train" else 1.0
     layers = cfg.n_layers
     return passes * layers * per_pass / chips
+
+
+def flash_head_dims(cfg):
+    """(q/k head dim, v head dim) of the flash kernel's launches: MLA's
+    (qk_nope + qk_rope, v_head_dim), else the config's one head dim twice."""
+    if cfg.family == "mla_moe":
+        return cfg.qk_nope + cfg.qk_rope, cfg.v_head_dim
+    hd = cfg.head_dim or cfg.d_model // max(cfg.n_heads, 1)
+    return hd, hd
 
 
 def flash_rooflines(bundle, cfg, shape, chips: int = CHIPS, cost=None):

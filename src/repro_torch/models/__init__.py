@@ -1,5 +1,5 @@
-"""Decoder models of the dense and moe families in PyTorch (counterpart of
-``repro.models``)."""
+"""Decoder models of the dense, moe and mla_moe families in PyTorch
+(counterpart of ``repro.models``)."""
 
 from .model import (Model, ModelConfig, active_params, build_model,
                     count_params, decode_fn, init_cache, init_params,

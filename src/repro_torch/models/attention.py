@@ -1,12 +1,17 @@
-"""GQA attention with RoPE (counterpart of the GQA part of
-``repro/models/attention.py``).
+"""GQA attention with RoPE and DeepSeek-V2's multi-head latent attention
+(counterpart of the GQA and MLA parts of ``repro/models/attention.py``).
 
 Prefill attention runs the flash-attention kernel (``ops.flash_attention``)
-where the JAX model runs its XLA analogue ``chunked_attention``.  Decode
-attention (one query row against the cache) stays plain PyTorch, as it is no
-Pallas kernel in the reference.  Layouts are the reference's: weights
-``wq/wk/wv (d, H|K, hd)`` and ``wo (H, hd, d)``, activations
-``(B, S, H, hd)``, KV cache ``(B, S, K, hd)`` per layer.
+where the JAX model runs its XLA analogue ``chunked_attention``; MLA's runs
+it with q/k head dim ``qk_nope + qk_rope`` and v head dim ``v_head_dim``.
+Decode attention (one query row against the cache) stays plain PyTorch, as
+it is no Pallas kernel in the reference; MLA decodes in the absorbed form,
+against a cache of the compressed ``c_kv`` and the shared ``k_rope``.
+Layouts are the reference's: weights ``wq/wk/wv (d, H|K, hd)`` and
+``wo (H, hd, d)``, activations ``(B, S, H, hd)``, KV cache ``(B, S, K, hd)``
+per layer; MLA's ``wq_a (d, q_lora)``, ``wq_b (q_lora, H, nope + rope)``,
+``wkv_a (d, kv_lora + rope)``, ``wk_b/wv_b (kv_lora, H, nope|v)``,
+``wo (H, v, d)`` and cache ``c_kv (B, S, kv_lora)``, ``k_rope (B, S, rope)``.
 """
 
 from __future__ import annotations
@@ -18,7 +23,7 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch.kernels import ops
-from .paramdecl import normal_param
+from .paramdecl import normal_param, ones_param
 
 Params = Dict[str, torch.Tensor]
 
@@ -138,3 +143,91 @@ def gqa_decode(p: Params, x: torch.Tensor, cache: Params, pos: int,
         cache["v"][:, pos:pos + 1] = _proj(x, p["wv"])
         o = decode_attention(q, cache["k"], cache["v"], pos + 1)
         return _out(o, p["wo"]), cache
+
+
+# ----------------------------------------------------------------- MLA block
+def mla_init(gen: torch.Generator, d: int, n_heads: int, dtype, *,
+             q_lora: int = 1536, kv_lora: int = 512, qk_nope: int = 128,
+             qk_rope: int = 64, v_dim: int = 128) -> Params:
+    return {"wq_a": normal_param(gen, (d, q_lora), dtype),
+            "q_norm": ones_param(gen, (q_lora,), dtype),
+            "wq_b": normal_param(gen, (q_lora, n_heads, qk_nope + qk_rope), dtype),
+            "wkv_a": normal_param(gen, (d, kv_lora + qk_rope), dtype),
+            "kv_norm": ones_param(gen, (kv_lora,), dtype),
+            "wk_b": normal_param(gen, (kv_lora, n_heads, qk_nope), dtype),
+            "wv_b": normal_param(gen, (kv_lora, n_heads, v_dim), dtype),
+            "wo": normal_param(gen, (n_heads, v_dim, d), dtype)}
+
+
+def _rms(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+         ) -> torch.Tensor:
+    """The reference's ``_rms`` (q_norm, kv_norm): the function of
+    ``ops.rmsnorm`` with the same eps, so the card runs the RMSNorm kernel."""
+    return ops.rmsnorm(x, scale, eps)
+
+
+def _mla_q(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """x (B, S, d) -> q (B, S, H, nope + rope), before RoPE."""
+    return _proj(_rms(x @ p["wq_a"], p["q_norm"]), p["wq_b"])
+
+
+def mla_attend(p: Params, x: torch.Tensor, positions: torch.Tensor,
+               theta: float, *, return_cache: bool = False):
+    """Training/prefill MLA: the compressed KV expanded per head, attention
+    through the flash kernel on q, k (B, S, H, nope + rope) and v
+    (B, S, H, v): x (B, S, d) -> (B, S, d) [, {"c_kv", "k_rope"}]."""
+    with record_function("attn"):
+        B, S, _ = x.shape
+        qk_rope = p["wq_b"].shape[-1] - p["wk_b"].shape[-1]
+        kv_lora = p["wk_b"].shape[0]
+        q = _mla_q(p, x)
+        kv = x @ p["wkv_a"]
+        c_kv = _rms(kv[..., :kv_lora], p["kv_norm"])
+        cos, sin = rope_angles(positions, qk_rope, theta)
+        q = torch.cat([q[..., :-qk_rope], apply_rope(q[..., -qk_rope:], cos, sin)],
+                      dim=-1)
+        k_rope = apply_rope(kv[:, :, None, kv_lora:], cos, sin)   # (B, S, 1, rope)
+        k_nope, v = _proj(c_kv, p["wk_b"]), _proj(c_kv, p["wv_b"])
+        H = k_nope.shape[2]
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, qk_rope)], dim=-1)
+        o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                v.transpose(1, 2), causal=True).transpose(1, 2)
+        out = _out(o, p["wo"])
+    if not return_cache:
+        return out
+    return out, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0]}
+
+
+def mla_decode(p: Params, x: torch.Tensor, cache: Params, pos: int,
+               theta: float) -> Tuple[torch.Tensor, Params]:
+    """Absorbed MLA decode, x (B, 1, d) at position ``pos`` (an int): the
+    cache holds (c_kv, k_rope) only, and
+
+        score_h = q_nope_h^T Wk_b_h c_kv + q_rope_h^T k_rope,  / sqrt(nope + rope)
+        out_h   = (softmax(score_h) . c_kv) Wv_b_h.
+
+    Writes the new token's c_kv and k_rope into the cache in place (the
+    reference returns an updated copy) and returns it."""
+    with record_function("attn"):
+        qk_rope = p["wq_b"].shape[-1] - p["wk_b"].shape[-1]
+        kv_lora = p["wk_b"].shape[0]
+        q = _mla_q(p, x)                                          # (B, 1, H, nope + rope)
+        kv = x @ p["wkv_a"]                                       # (B, 1, lora + rope)
+        positions = torch.full((1,), pos, device=x.device)       # no host copy
+        cos, sin = rope_angles(positions, qk_rope, theta)
+        q_rope = apply_rope(q[..., -qk_rope:], cos[None], sin[None])
+        cache["c_kv"][:, pos:pos + 1] = _rms(kv[..., :kv_lora], p["kv_norm"])
+        cache["k_rope"][:, pos:pos + 1] = apply_rope(
+            kv[:, :, None, kv_lora:], cos[None], sin[None])[:, :, 0]
+        ckv, krc = cache["c_kv"], cache["k_rope"]
+        # q absorbed into the compressed space: (B, H, lora)
+        q_abs = torch.einsum("bshk,lhk->bhl", q[..., :-qk_rope], p["wk_b"])
+        scores = (torch.einsum("bhl,bsl->bhs", q_abs, ckv)
+                  + torch.einsum("bhk,bsk->bhs", q_rope[:, 0], krc)).float()
+        valid = torch.arange(ckv.shape[1], device=x.device) < pos + 1
+        scores = (scores * (1.0 / math.sqrt(p["wq_b"].shape[-1]))).masked_fill(
+            ~valid, NEG_INF)
+        w = torch.softmax(scores, dim=-1).to(ckv.dtype)
+        o_c = torch.einsum("bhs,bsl->bhl", w, ckv)                # (B, H, lora)
+        o = torch.einsum("bhl,lhk->bhk", o_c, p["wv_b"])          # (B, H, v)
+        return torch.einsum("bhk,hkd->bd", o, p["wo"])[:, None, :], cache

@@ -1,5 +1,5 @@
 """ModelConfig and the model API (counterpart of ``repro/models/model.py``),
-for the dense and moe families:
+for the dense, moe and mla_moe families:
 
     init_params(cfg, seed, device)          -> params (meta: shapes only)
     loss_fn(cfg, params, batch)             -> scalar loss          (train)
@@ -7,14 +7,15 @@ for the dense and moe families:
     make_train_step(cfg, optimizer)         -> (state, batch) -> (state, metrics)
     prefill_fn(cfg, params, batch)          -> (last-token logits, caches)
     decode_fn(cfg, params, caches, tok, pos)-> (logits, caches)   (one token)
-    init_cache(cfg, batch, max_seq, device) -> zeroed per-layer KV caches
+    init_cache(cfg, batch, max_seq, device) -> zeroed per-layer caches
     count_params(cfg), active_params(cfg)   -> parameter counts (meta, no memory)
 
 Params are the reference's tree with ``blocks`` a list of per-layer dicts
-(the reference stacks them on a leading axis).  Caches are a list of
-``{"k", "v"}`` tensors of shape ``(B, S, K, hd)``, one per layer.  The
-other families, local-attention windows, attention biases and LayerNorm
-raise ``NotImplementedError``.
+(the reference stacks them on a leading axis).  Caches are a list of one
+dict per layer, as the family's cache spec gives it: ``{"k", "v"}`` of
+shape ``(B, S, K, hd)`` (dense, moe), ``{"c_kv" (B, S, kv_lora), "k_rope"
+(B, S, qk_rope)}`` (mla_moe).  The other families, local-attention
+windows, attention biases and LayerNorm raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -97,13 +98,15 @@ class ModelConfig:
         return dataclasses.replace(self, **kw)
 
 
-# family -> (block_init, block_apply, block_decode, block_prefill); both
-# families keep the dense KV cache (``init_cache``)
+# family -> (block_init, block_apply, block_decode, block_prefill,
+# cache_spec); the cache spec gives one layer's cache shapes (``init_cache``)
 _FAMILY = {
     "dense": (T.dense_block_init, T.dense_block_apply, T.dense_block_decode,
-              T.dense_block_prefill),
+              T.dense_block_prefill, T.dense_cache_spec),
     "moe": (T.moe_block_init, T.moe_block_apply, T.moe_block_decode,
-            T.moe_block_prefill),
+            T.moe_block_prefill, T.dense_cache_spec),
+    "mla_moe": (T.mla_block_init, T.mla_block_apply, T.mla_block_decode,
+                T.mla_block_prefill, T.mla_cache_spec),
 }
 
 
@@ -168,12 +171,12 @@ def active_params(cfg: ModelConfig) -> int:
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device
                ) -> List[Params]:
-    """Zeroed KV caches, ``(batch, max_seq, K, hd)`` per layer."""
-    shape = (batch, max_seq, cfg.n_kv_heads, T.head_dim(cfg))
+    """Zeroed caches of ``max_seq`` positions, one dict per layer, of the
+    shapes the family's cache spec gives."""
     dev = resolve_device(device)
-    return [{"k": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev),
-             "v": torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)}
-            for _ in range(cfg.n_layers)]
+    spec = _FAMILY[cfg.family][4](cfg, batch, max_seq)
+    return [{k: torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)
+             for k, shape in spec.items()} for _ in range(cfg.n_layers)]
 
 
 # ----------------------------------------------------------------- forward

@@ -1,8 +1,10 @@
-"""Dense (GQA) and MoE transformer blocks and the layer loops (counterpart
-of the dense and moe families of ``repro/models/transformer.py``).
+"""Dense (GQA), MoE and MLA+MoE transformer blocks and the layer loops
+(counterpart of the dense, moe and mla_moe families of
+``repro/models/transformer.py``).
 
-Each family provides (init, train-apply, decode-apply, prefill) with a
-uniform signature, as in the reference; ``model.py`` picks them by family.
+Each family provides (init, train-apply, decode-apply, prefill, cache spec)
+with a uniform signature, as in the reference; ``model.py`` picks them by
+family.
 The reference stacks layers on a leading axis and drives them with
 ``lax.scan``; here ``blocks`` is a list of per-layer dicts and the loop is a
 Python loop.
@@ -14,7 +16,8 @@ from typing import Dict, List, Tuple, Union
 
 import torch
 
-from .attention import gqa_attend, gqa_decode, gqa_init
+from .attention import (gqa_attend, gqa_decode, gqa_init, mla_attend,
+                        mla_decode, mla_init)
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 from .moe import moe_ffn, moe_init
 
@@ -61,6 +64,12 @@ def dense_block_decode(cfg, p: Params, x: torch.Tensor, cache: Params, pos: int
     return x, cache
 
 
+def dense_cache_spec(cfg, batch: int, seq: int) -> Dict[str, Tuple[int, ...]]:
+    """One layer's KV cache shapes (the dense and moe families')."""
+    shape = (batch, seq, cfg.n_kv_heads, head_dim(cfg))
+    return {"k": shape, "v": shape}
+
+
 # --------------------------------------------------------------------- MoE
 def moe_block_init(cfg, gen: torch.Generator, dtype) -> Params:
     return {
@@ -102,6 +111,55 @@ def moe_block_decode(cfg, p: Params, x: torch.Tensor, cache: Params, pos: int
     return x + _moe(cfg, p, x)[0], cache
 
 
+# ----------------------------------------------------------------- MLA+MoE
+def mla_block_init(cfg, gen: torch.Generator, dtype) -> Params:
+    return {
+        "ln1": rmsnorm_init(gen, cfg.d_model, dtype),
+        "attn": mla_init(gen, cfg.d_model, cfg.n_heads, dtype,
+                         q_lora=cfg.q_lora, kv_lora=cfg.kv_lora,
+                         qk_nope=cfg.qk_nope, qk_rope=cfg.qk_rope,
+                         v_dim=cfg.v_head_dim),
+        "ln2": rmsnorm_init(gen, cfg.d_model, dtype),
+        "moe": moe_init(gen, cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
+                        cfg.top_k, cfg.n_shared_experts, dtype),
+    }
+
+
+def _mla(cfg, p: Params, x: torch.Tensor, **kw):
+    """MLA on the block's normed input; its RoPE angles are its own (rope
+    columns only), as in the reference, which leaves the model's unused."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    return mla_attend(p["attn"], rmsnorm(p["ln1"], x), positions,
+                      cfg.rope_theta, **kw)
+
+
+def mla_block_apply(cfg, p: Params, x: torch.Tensor, cos, sin
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    x = x + _mla(cfg, p, x)
+    h, aux = _moe(cfg, p, x)
+    return x + h, aux
+
+
+def mla_block_prefill(cfg, p: Params, x: torch.Tensor, cos, sin
+                      ) -> Tuple[torch.Tensor, Params]:
+    a, cache = _mla(cfg, p, x, return_cache=True)
+    x = x + a
+    return x + _moe(cfg, p, x)[0], cache
+
+
+def mla_block_decode(cfg, p: Params, x: torch.Tensor, cache: Params, pos: int
+                     ) -> Tuple[torch.Tensor, Params]:
+    a, cache = mla_decode(p["attn"], rmsnorm(p["ln1"], x), cache, pos,
+                          cfg.rope_theta)
+    x = x + a
+    return x + _moe(cfg, p, x)[0], cache
+
+
+def mla_cache_spec(cfg, batch: int, seq: int) -> Dict[str, Tuple[int, ...]]:
+    """One layer's MLA cache shapes: c_kv and k_rope."""
+    return {"c_kv": (batch, seq, cfg.kv_lora), "k_rope": (batch, seq, cfg.qk_rope)}
+
+
 # ------------------------------------------------------------ layer loops
 def run_stack(cfg, blocks: List[Params], x: torch.Tensor, apply_fn, cos, sin
               ) -> Tuple[torch.Tensor, Union[torch.Tensor, float]]:
@@ -118,7 +176,7 @@ def run_stack(cfg, blocks: List[Params], x: torch.Tensor, apply_fn, cos, sin
 
 def run_stack_prefill(cfg, blocks: List[Params], x: torch.Tensor, prefill_fn,
                       cos, sin) -> Tuple[torch.Tensor, List[Params]]:
-    """Run the layers in order, collecting each layer's K/V cache."""
+    """Run the layers in order, collecting each layer's cache."""
     caches = []
     for lp in blocks:
         x, cache = prefill_fn(cfg, lp, x, cos, sin)

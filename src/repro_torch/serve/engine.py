@@ -7,8 +7,9 @@ positions count from the first pad), prefilled together, then decoded one
 token per step until the largest ``max_new_tokens`` is reached; finished
 slots keep decoding until the batch drains.
 
-The KV cache is allocated at ``max_seq`` per layer and the prefill K/V are
-written into ``[:prompt_len]``, so decode step ``pos`` writes its own slot.
+The cache is allocated at ``max_seq`` per layer and each of the prefill's
+cache leaves (K/V, or MLA's c_kv/k_rope) is written into ``[:prompt_len]``,
+so decode step ``pos`` writes its own slot.
 (The reference's ``_grow_cache`` pads only 4-D leaves, and its prefill cache
 is stacked over layers and 5-D, so its decode steps overwrite the last
 prompt slot; that is not copied here.)
@@ -58,13 +59,13 @@ class ServeEngine:
 
     def _grow_cache(self, prefix: List[Dict[str, torch.Tensor]], plen: int
                     ) -> List[Dict[str, torch.Tensor]]:
-        """The prefill's per-layer K/V (``plen`` positions) written into a
-        zeroed cache of ``max_seq`` positions."""
-        cache = init_cache(self.cfg, prefix[0]["k"].shape[0], self.max_seq,
-                           self.device)
+        """The prefill's per-layer cache (``plen`` positions) written into a
+        zeroed cache of ``max_seq`` positions, leaf by leaf."""
+        batch = next(iter(prefix[0].values())).shape[0]
+        cache = init_cache(self.cfg, batch, self.max_seq, self.device)
         for layer, pre in zip(cache, prefix):
-            layer["k"][:, :plen] = pre["k"]
-            layer["v"][:, :plen] = pre["v"]
+            for key, leaf in pre.items():
+                layer[key][:, :plen] = leaf
         return cache
 
     @torch.inference_mode()

@@ -1,8 +1,8 @@
 """Which flash-attention kernel takes which inputs, and how launches are
 counted per kernel.
 
-``_variant`` is a pure function of dtype, head dim, base pointers and
-strides, so it runs here on CPU tensors.  The launch path is driven with the
+``_variant`` is a pure function of dtype, head dims (q/k's and v's), base
+pointers and strides, so it runs here on CPU tensors.  The launch path is driven with the
 compiled libraries replaced by fakes (there is no card or nvcc here), which
 shows the wrapper counts each launch once, under the kernel it chose, and
 raises on a launch error without trying the other kernel.
@@ -32,6 +32,14 @@ def _bshd_views(B, H, KH, S, D, dtype=bf16):
                  for h in (H, KH, KH))
 
 
+def _mla(B, H, S, D, Dv, dtype=bf16):
+    """(B, S, H, D) q/k and (B, S, H, Dv) v viewed as (B, H, S, .), as MLA
+    passes them (one K per head)."""
+    return (torch.zeros(B, S, H, D, dtype=dtype).transpose(1, 2),
+            torch.zeros(B, S, H, D, dtype=dtype).transpose(1, 2),
+            torch.zeros(B, S, H, Dv, dtype=dtype).transpose(1, 2))
+
+
 def _padded_rows(B, H, KH, S, D, pad, dtype=bf16):
     """Rows of D + pad elements with the last ``pad`` cut off: S-stride D + pad."""
     return tuple(torch.zeros(B, h, S, D + pad, dtype=dtype)[..., :D]
@@ -49,9 +57,18 @@ def _padded_rows(B, H, KH, S, D, pad, dtype=bf16):
     (lambda: _bhsd(1, 2, 1, 64, 12), "scalar"),
     (lambda: _padded_rows(1, 2, 1, 64, 64, 4), "scalar"),
     (lambda: _padded_rows(1, 2, 1, 64, 64, 8), "wgmma"),
+    (lambda: _mla(4, 128, 512, 192, 128), "wgmma"),
+    (lambda: _mla(1, 4, 64, 24, 16), "wgmma"),
+    (lambda: _mla(1, 4, 64, 136, 128), "wgmma"),
+    (lambda: _mla(4, 128, 512, 192, 128, f32), "scalar"),
+    (lambda: _mla(1, 4, 64, 200, 128), "scalar"),
+    (lambda: _mla(1, 4, 64, 192, 136), "scalar"),
+    (lambda: _mla(1, 4, 64, 192, 12), "scalar"),
 ], ids=["bf16-d64", "bf16-d128", "bf16-d80", "bf16-bshd-view",
         "bf16-bshd-view-ragged-d80", "f32", "f32-bshd-view", "bf16-d12",
-        "bf16-s-stride-68", "bf16-s-stride-72"])
+        "bf16-s-stride-68", "bf16-s-stride-72", "bf16-mla-192-128",
+        "bf16-mla-smoke-24-16", "bf16-qk136-v128", "f32-mla-192-128",
+        "bf16-qk200", "bf16-v136", "bf16-v12"])
 def test_variant_from_dtype_shape_and_strides(make, want):
     q, k, v = make()
     assert flash_kernel._variant(q, k, v) == want
@@ -117,4 +134,20 @@ def test_output_keeps_the_bshd_layout(monkeypatch):
     q, k, v = _bshd_views(2, 4, 2, 16, 64)
     o = flash_kernel.flash_attention(q, k, v)
     assert o.shape == q.shape and o.stride() == q.stride()
+    ops.reset_launch_counts()
+
+
+def test_mla_output_has_the_v_head_dim_in_the_bshd_layout(monkeypatch):
+    """With q/k head dim 192 and v head dim 128 the output is
+    (B, H, S, 128) in q's memory layout: a transposed view of a contiguous
+    (B, S, H, 128) tensor; a (B, H, S, D) q gives a contiguous one."""
+    ran = _fake_launches(monkeypatch)
+    ops.reset_launch_counts()
+    o = flash_kernel.flash_attention(*_mla(2, 4, 16, 192, 128))
+    assert o.shape == (2, 4, 16, 128) and o.transpose(1, 2).is_contiguous()
+    q = torch.zeros(2, 4, 16, 24, dtype=bf16)
+    o = flash_kernel.flash_attention(q, q[:, :2], torch.zeros(2, 2, 16, 16, dtype=bf16))
+    assert o.shape == (2, 4, 16, 16) and o.is_contiguous()
+    assert ran == ["wgmma", "wgmma"]
+    assert flash_kernel.launches_by_variant == {"wgmma": 2, "scalar": 0}
     ops.reset_launch_counts()

@@ -107,17 +107,24 @@ def test_kernel_wrappers_refuse_cpu_tensors():
                                    "fused_adam": 0, "dgc_mask": 0}
 
 
-@pytest.mark.parametrize("q_shape,k_shape,dtype,match", [
-    ((1, 2, 8, 160), (1, 1, 8, 160), torch.float32, "head dim"),
-    ((1, 3, 8, 16), (1, 2, 8, 16), torch.float32, "H % KH"),
-    ((1, 2, 8, 16), (1, 1, 9, 16), torch.float32, "do not match"),
-    ((1, 2, 8, 16), (1, 1, 8, 16), torch.float16, "dtypes"),
+@pytest.mark.parametrize("q_shape,k_shape,v_shape,dtype,match", [
+    ((1, 2, 8, 200), (1, 1, 8, 200), None, torch.float32, "q/k head dim 200"),
+    ((1, 3, 8, 16), (1, 2, 8, 16), None, torch.float32, "H % KH"),
+    ((1, 2, 8, 16), (1, 1, 9, 16), None, torch.float32, "do not match"),
+    ((1, 2, 8, 16), (1, 1, 8, 16), None, torch.float16, "dtypes"),
+    ((1, 2, 8, 16), (1, 1, 8, 16), (1, 1, 9, 16), torch.float32, "bad shapes"),
+    ((1, 2, 8, 192), (1, 1, 8, 192), (1, 1, 8, 136), torch.float32,
+     "v head dim 136"),
 ])
-def test_flash_wrapper_rejects_bad_inputs(q_shape, k_shape, dtype, match):
+def test_flash_wrapper_rejects_bad_inputs(q_shape, k_shape, v_shape, dtype, match):
+    """q/k head dims past 192, v head dims past 128 and a v whose B/KH/S
+    disagree with k's are refused before any launch (192 with 128 is
+    MLA's, and legal)."""
     q = torch.zeros(q_shape, dtype=dtype)
     k = torch.zeros(k_shape, dtype=dtype)
+    v = k if v_shape is None else torch.zeros(v_shape, dtype=dtype)
     with pytest.raises((ValueError, TypeError), match=match):
-        flash_kernel.flash_attention(q, k, k)
+        flash_kernel.flash_attention(q, k, v)
 
 
 def test_flash_attention_accepts_reference_block_keywords():

@@ -99,7 +99,7 @@ def test_unported_arch_family_and_options_raise():
     with pytest.raises(NotImplementedError):
         get_config("mamba2-2.7b")
     cfg = get_smoke_config(ARCH)
-    for family in ("ssm", "mla_moe"):
+    for family in ("ssm", "hybrid"):
         with pytest.raises(NotImplementedError):
             build_model(cfg.with_(family=family))
     for kw in ({"window": 8}, {"attn_bias": True}, {"norm": "layernorm"}):
