@@ -43,6 +43,13 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(a, dtype=dtype, device=device)
 
 
+def _depth(blocks: Dict[str, Any]) -> int:
+    """The leading (layer) axis of a stacked blocks tree: any leaf's."""
+    while isinstance(blocks, dict):
+        blocks = next(iter(blocks.values()))
+    return blocks.shape[0]
+
+
 def _split_layers(cfg: ModelConfig, tree: Dict[str, Any], dtype, device
                   ) -> Dict[str, Any]:
     """A params-shaped tree (blocks stacked) as tensors, blocks unstacked:
@@ -59,7 +66,7 @@ def _split_layers(cfg: ModelConfig, tree: Dict[str, Any], dtype, device
         a = sub if isinstance(sub, torch.Tensor) else np.asarray(sub)
         return _tensor(a if layer is None else a[layer], dt, dev)
 
-    n = tree["blocks"]["ln1"]["scale"].shape[0]
+    n = _depth(tree["blocks"])
     if n != cfg.n_layers:
         raise ValueError(f"tree has {n} stacked layers, config {cfg.n_layers}")
     block_dt = dtype["blocks"][0] if isinstance(dtype, dict) else dtype

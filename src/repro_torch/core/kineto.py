@@ -94,6 +94,10 @@ OP_CATS = ("cpu_op", "user_annotation")
 # CUPTI's record of a launch blocked on a full command buffer (Kineto's
 # ``overhead`` category)
 WAIT_CAT, WAIT_NAME = "overhead", "Command Buffer Full"
+# a capture document's own entry (torch.profiler's export has no such key):
+# ``issue_s``, the host seconds from the call to its return under the
+# profiler
+CAPTURE_KEY = "repro_torch"
 ENGINE = "autograd::engine::evaluate_function"
 UPDATE_SCOPE = "update"
 
@@ -118,6 +122,11 @@ NO_WORK = frozenset("aten::" + n for n in (
     "result_type", "to", "contiguous", "type_as", "size", "stride", "numel",
     "dim", "is_nonzero", "_has_compatible_shallow_copy_type",
     "_debug_has_internal_overlap", "set_", "record_stream"))
+# aten operators that the card runs as one kernel but whose meta
+# implementation calls other aten operators, each of which would be a task
+# (the ssm family's softplus and its causal masks)
+ONE_KERNEL = frozenset("aten::" + n for n in (
+    "softplus", "softplus_backward", "triu"))
 
 
 # ------------------------------------------------------------------ events
@@ -270,14 +279,15 @@ def task_ops(host_side: Sequence[_Event]) -> List[_Event]:
     in program order: each ``aten::`` operator (or kernel meta operator)
     that does work and has no such operator below it -- except that an
     atomic operator is one task with whatever it calls: a matrix product, a
-    kernel's meta operator, and an operator whose implementation is a
+    kernel's meta operator, an operator whose implementation is a
     decomposition into ``prims::`` (on meta tensors a bf16 ``mul`` casts
     its inputs to f32 with ``copy_`` calls around ``prims::mul``, where the
-    card runs one kernel).  Views, allocations and autograd's own nodes are
-    none (``NO_WORK``)."""
+    card runs one kernel), and the operators in ``ONE_KERNEL``.  Views,
+    allocations and autograd's own nodes are none (``NO_WORK``)."""
     ops = [ev for ev in host_side if ev.cat == "cpu_op"]
     atomic = {id(ev) for ev in ops
-              if ev.name in _MATMULS or ev.name.startswith(KERNEL_PREFIX)}
+              if ev.name in _MATMULS or ev.name in ONE_KERNEL
+              or ev.name.startswith(KERNEL_PREFIX)}
     for ev in ops:
         if ev.name.startswith("prims::"):
             owner = next((a for a in ev.ancestors() if a.cat == "cpu_op"
@@ -414,6 +424,18 @@ def _cuda_graph(host_side: List[_Event], device: List[_Event],
             if last is None or dv.ts > last.ts:
                 last = dv
     return g
+
+
+def scale_host_lane(graph: DependencyGraph, scale: float) -> DependencyGraph:
+    """``graph`` with every host-lane task's duration and gap times
+    ``scale``, in place (and returned): the profiler's slowing of the host
+    taken out by ``trace.trace_measured``'s ``host_scale`` (a calibration
+    on the traced step's own host time, ROADMAP C5)."""
+    if scale != 1.0:
+        for t in graph.lane_tasks(HOST_THREAD):
+            t.duration *= scale
+            t.gap *= scale
+    return graph
 
 
 def _release_waits(g: DependencyGraph, spans, device: List[_Event],

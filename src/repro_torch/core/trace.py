@@ -12,7 +12,9 @@ unlike the reference's ``trace_measured`` nothing is rescaled.
   each kernel launch included, with :class:`CostModel` (the H100 SXM's data
   sheet by default).
 * :func:`trace_measured` — warm up, profile a few calls, build the graph
-  of the fastest.
+  of the fastest; on request also time a few calls' issue without the
+  profiler, and report the host scale that would take the host lane to
+  that pace (ROADMAP C5).
 * :func:`measure_wallclock` — the step's time without the profiler: the
   median over calls of CUDA-event time (host clock on the CPU).
 
@@ -25,6 +27,7 @@ simulated step as this package's native Chrome export.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import gzip
 import json
 import os
@@ -39,9 +42,9 @@ from repro_torch import resolve_device
 from .analytical import graph_from_meta_events
 from .costmodel import CostModel
 from .graph import DependencyGraph
-from .kineto import graph_from_events
+from .kineto import CAPTURE_KEY, graph_from_events
 from .simulate import SimResult, simulate
-from .task import DEVICE_STREAM, H100_SXM
+from .task import DEVICE_STREAM, H100_SXM, HOST_THREAD
 
 
 @dataclasses.dataclass
@@ -117,28 +120,45 @@ def profile_trace(fn: Callable, *args, device="cuda", **kwargs
                   ) -> Dict[str, Any]:
     """The Chrome trace document torch.profiler exports for one call of
     ``fn`` (ending in a device sync) with CPU (and on CUDA, CUDA) activities
-    and shapes.
+    and shapes, with ``CAPTURE_KEY: {"issue_s": ...}`` added: the host
+    seconds from the call to its return, before the sync.
 
     ``with_flops`` stays off: its counts do not reach the exported trace
     (:mod:`.kineto` computes the matrix products' FLOPs from the recorded
     shapes), and the host time it adds to every operator stretches the
     profiled step where the host paces the device, which the simulation
-    would then reproduce as if it were the step's own."""
+    would then reproduce as if it were the step's own.
+
+    Python's cyclic garbage collector is run first and paused during the
+    call: the parsed traces of earlier captures are hundreds of thousands
+    of objects each, and a collection that traverses them inside the call
+    stretches the host time the simulation reproduces (ROADMAP C5)."""
     dev = resolve_device(device)
     acts = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
-        fn(*args, **kwargs)
-        _sync(dev)
+    gc.collect()
+    paused = gc.isenabled()
+    gc.disable()
+    try:
+        with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
+            t0 = time.perf_counter()
+            fn(*args, **kwargs)
+            issue_s = time.perf_counter() - t0
+            _sync(dev)
+    finally:
+        if paused:
+            gc.enable()
     fd, path = tempfile.mkstemp(suffix=".json")
     os.close(fd)
     try:
         prof.export_chrome_trace(path)
         with open(path) as f:
-            return json.load(f)
+            doc = json.load(f)
     finally:
         os.remove(path)
+    doc[CAPTURE_KEY] = {"issue_s": issue_s}
+    return doc
 
 
 def host_span_s(events: List[Dict[str, Any]]) -> float:
@@ -170,23 +190,53 @@ def trace_compiled(fn: Callable, *args, cost: Optional[CostModel] = None,
     return TraceBundle(graph=graph, module=events, aggregates=agg, cost=cost)
 
 
+# calls timed without the profiler where a caller asks for the host scale
+PACE_CALLS = 3
+
+
 def trace_measured(fn: Callable, *args, device="cuda",
                    cost: Optional[CostModel] = None, warmup: int = 2,
                    profiles: int = 3, save_to: Optional[str] = None,
-                   **kwargs) -> TraceBundle:
+                   pace_calls: int = 0, **kwargs) -> TraceBundle:
     """Profile ``profiles`` calls of ``fn(*args, **kwargs)`` after ``warmup``
     calls, one capture each, and build the dependency graph of the capture
-    with the shortest host span, with measured durations.  The simulation
-    reproduces the pace of the host it captured, and on a shared host that
-    pace varies from call to call; the fastest capture is the one least
-    slowed by other load.  ``cost`` (for tasks that what-ifs insert)
-    defaults to the H100 SXM's data sheet on CUDA and to the reference's
-    default on the CPU.  ``save_to`` (a ``*.pt.trace.json[.gz]`` path)
-    receives the kept capture's document, as torch.profiler exported it."""
+    with the shortest host span, with measured durations.  On a shared host
+    the pace varies from call to call; the fastest capture is the one least
+    slowed by other load.
+
+    The simulation reproduces the pace of the host it captured, and the
+    profiler slows the host (ROADMAP C5).  With ``pace_calls`` (on CUDA),
+    that many calls between the warm-up and the captures are timed without
+    the profiler (the host clock from the call to its return, before a
+    sync), and ``aggregates["host_scale"]`` is ``min(1, median of those /
+    the kept capture's host-lane total)``: the factor that
+    ``kineto.scale_host_lane`` would apply to take the lane (the host's own
+    work, its waits on a full launch queue released to the device) to the
+    unprofiled pace.  The graph is returned as captured.  A caller that
+    applies the scale calibrates the simulation on this step's own host
+    time: where the host paces the card, the scaled step then reproduces
+    the unprofiled call by construction, so it is a base for what-ifs, not
+    a prediction of this step.  On the CPU the operators are the device's
+    work and the scale is 1.
+
+    ``cost`` (for tasks that what-ifs insert) defaults to the H100 SXM's
+    data sheet on CUDA and to the reference's default on the CPU.
+    ``save_to`` (a ``*.pt.trace.json[.gz]`` path) receives the kept
+    capture's document as torch.profiler exported it (with
+    ``CAPTURE_KEY``'s issue time), which
+    :func:`repro_torch.traceio.load_trace_dir` reads back into the same
+    graph.  The bundle's ``aggregates["calls"]`` counts the calls of ``fn``
+    made here."""
     dev = resolve_device(device)
     for _ in range(warmup):
         fn(*args, **kwargs)
     _sync(dev)
+    issue = []
+    for _ in range(pace_calls if dev.type == "cuda" else 0):
+        t0 = time.perf_counter()
+        fn(*args, **kwargs)
+        issue.append(time.perf_counter() - t0)
+        _sync(dev)
     doc, spans = None, []
     for _ in range(max(1, profiles)):
         got = profile_trace(fn, *args, device=dev, **kwargs)
@@ -200,6 +250,9 @@ def trace_measured(fn: Callable, *args, device="cuda",
             json.dump(doc, f)
     events = doc["traceEvents"]
     graph = graph_from_events(events, device=dev.type)
+    lane_s = sum(t.duration + t.gap for t in graph.lane_tasks(HOST_THREAD))
+    unprofiled = sorted(issue)[len(issue) // 2] if issue else None
+    scale = 1.0 if unprofiled is None else min(1.0, unprofiled / lane_s)
     if cost is None:
         cost = CostModel(hw=H100_SXM) if dev.type == "cuda" else CostModel()
     tasks = graph.tasks()
@@ -209,5 +262,9 @@ def trace_measured(fn: Callable, *args, device="cuda",
            "device_s": sum(t.duration for t in dev_tasks),
            "device_tasks": float(len(dev_tasks)),
            "host_tasks": float(len(tasks) - len(dev_tasks)),
-           "span_s": min(spans), "slowest_span_s": max(spans)}
+           "span_s": min(spans), "slowest_span_s": max(spans),
+           "host_scale": scale, "issue_s": doc[CAPTURE_KEY]["issue_s"],
+           "host_lane_s": lane_s,
+           "unprofiled_issue_s": unprofiled,
+           "calls": float(warmup + len(issue) + max(1, profiles))}
     return TraceBundle(graph=graph, module=events, aggregates=agg, cost=cost)

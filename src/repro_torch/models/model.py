@@ -1,5 +1,5 @@
 """ModelConfig and the model API (counterpart of ``repro/models/model.py``),
-for the dense, moe and mla_moe families:
+for the dense, moe, mla_moe and ssm families:
 
     init_params(cfg, seed, device)          -> params (meta: shapes only)
     loss_fn(cfg, params, batch)             -> scalar loss          (train)
@@ -8,20 +8,23 @@ for the dense, moe and mla_moe families:
     prefill_fn(cfg, params, batch)          -> (last-token logits, caches)
     decode_fn(cfg, params, caches, tok, pos)-> (logits, caches)   (one token)
     init_cache(cfg, batch, max_seq, device) -> zeroed per-layer caches
+    cache_seq_axes(cfg)                     -> each cache leaf's sequence axis
     count_params(cfg), active_params(cfg)   -> parameter counts (meta, no memory)
 
 Params are the reference's tree with ``blocks`` a list of per-layer dicts
 (the reference stacks them on a leading axis).  Caches are a list of one
 dict per layer, as the family's cache spec gives it: ``{"k", "v"}`` of
 shape ``(B, S, K, hd)`` (dense, moe), ``{"c_kv" (B, S, kv_lora), "k_rope"
-(B, S, qk_rope)}`` (mla_moe).  The other families, local-attention
-windows, attention biases and LayerNorm raise ``NotImplementedError``.
+(B, S, qk_rope)}`` (mla_moe), ``{"conv" (B, 3, d_inner), "state" (B, H, 64,
+ssm_state)}`` (ssm: constant in S).  The ssm family has no RoPE, as in the
+reference.  The other families, local-attention windows, attention biases
+and LayerNorm raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -107,6 +110,8 @@ _FAMILY = {
             T.moe_block_prefill, T.dense_cache_spec),
     "mla_moe": (T.mla_block_init, T.mla_block_apply, T.mla_block_decode,
                 T.mla_block_prefill, T.mla_cache_spec),
+    "ssm": (T.ssm_block_init, T.ssm_block_apply, T.ssm_block_decode,
+            T.ssm_block_prefill, T.ssm_cache_spec),
 }
 
 
@@ -179,7 +184,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device
              for k, shape in spec.items()} for _ in range(cfg.n_layers)]
 
 
+def cache_seq_axes(cfg: ModelConfig) -> Dict[str, Optional[int]]:
+    """For each leaf of one layer's cache, the axis that holds the sequence
+    positions: the one whose length follows ``seq`` in the family's cache
+    spec; ``None`` for a leaf of constant size (the ssm family's conv
+    window and state)."""
+    spec = _FAMILY[cfg.family][4]
+    one, two = spec(cfg, 1, 1), spec(cfg, 1, 2)
+    return {k: next((i for i, (a, b) in enumerate(zip(one[k], two[k])) if a != b),
+                    None) for k in one}
+
+
 # ----------------------------------------------------------------- forward
+def _rope(cfg: ModelConfig, S: int, device):
+    """RoPE's (cos, sin) for positions 0..S-1; (None, None) for the ssm
+    family, which has no attention."""
+    if cfg.family == "ssm":
+        return None, None
+    return rope_angles(torch.arange(S, device=device), T.head_dim(cfg),
+                       cfg.rope_theta)
+
+
 def _last_logits(cfg: ModelConfig, p: Params, h_last: torch.Tensor
                  ) -> torch.Tensor:
     """h_last: (B, d) -> (B, vocab)."""
@@ -196,9 +221,7 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
     """batch["tokens"], batch["labels"]: (B, S) [, "mask"] -> mean token CE
     (plus ``aux_loss_coef`` times the blocks' mean MoE aux loss)."""
     x = embed(p["embed"], batch["tokens"].long())
-    S = x.shape[1]
-    cos, sin = rope_angles(torch.arange(S, device=x.device), T.head_dim(cfg),
-                           cfg.rope_theta)
+    cos, sin = _rope(cfg, x.shape[1], x.device)
     x, aux = T.run_stack(cfg, p["blocks"], x, _FAMILY[cfg.family][1], cos, sin)
     h = rmsnorm(p["final_norm"], x)
     loss = softmax_cross_entropy_chunked(_unembed_params(cfg, p), h,
@@ -225,9 +248,7 @@ def prefill_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
                ) -> Tuple[torch.Tensor, List[Params]]:
     """batch["tokens"]: (B, S) -> (logits of the last position, caches of S)."""
     x = embed(p["embed"], batch["tokens"])
-    S = x.shape[1]
-    cos, sin = rope_angles(torch.arange(S, device=x.device), T.head_dim(cfg),
-                           cfg.rope_theta)
+    cos, sin = _rope(cfg, x.shape[1], x.device)
     x, caches = T.run_stack_prefill(cfg, p["blocks"], x, _FAMILY[cfg.family][3],
                                     cos, sin)
     h = rmsnorm(p["final_norm"], x)

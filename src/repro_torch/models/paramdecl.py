@@ -42,6 +42,13 @@ def normal_param(gen: Optional[torch.Generator], shape: Sequence[int],
     return (x * s).to(dtype)
 
 
+def zeros_param(gen: Optional[torch.Generator], shape: Sequence[int],
+                dtype: torch.dtype) -> torch.Tensor:
+    if is_spec_mode(gen):
+        return _spec(shape, dtype)
+    return torch.zeros(tuple(shape), dtype=dtype, device=gen.device)
+
+
 def ones_param(gen: Optional[torch.Generator], shape: Sequence[int],
                dtype: torch.dtype) -> torch.Tensor:
     if is_spec_mode(gen):

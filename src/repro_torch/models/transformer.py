@@ -1,5 +1,5 @@
-"""Dense (GQA), MoE and MLA+MoE transformer blocks and the layer loops
-(counterpart of the dense, moe and mla_moe families of
+"""Dense (GQA), MoE, MLA+MoE and SSM blocks and the layer loops
+(counterpart of the dense, moe, mla_moe and ssm families of
 ``repro/models/transformer.py``).
 
 Each family provides (init, train-apply, decode-apply, prefill, cache spec)
@@ -20,6 +20,7 @@ from .attention import (gqa_attend, gqa_decode, gqa_init, mla_attend,
                         mla_decode, mla_init)
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 from .moe import moe_ffn, moe_init
+from .ssm import mamba2_cache_spec, mamba2_decode, mamba2_forward, mamba2_init
 
 Params = Dict[str, object]
 
@@ -158,6 +159,43 @@ def mla_block_decode(cfg, p: Params, x: torch.Tensor, cache: Params, pos: int
 def mla_cache_spec(cfg, batch: int, seq: int) -> Dict[str, Tuple[int, ...]]:
     """One layer's MLA cache shapes: c_kv and k_rope."""
     return {"c_kv": (batch, seq, cfg.kv_lora), "k_rope": (batch, seq, cfg.qk_rope)}
+
+
+# --------------------------------------------------------------------- SSM
+def ssm_block_init(cfg, gen: torch.Generator, dtype) -> Params:
+    return {
+        "ln": rmsnorm_init(gen, cfg.d_model, dtype),
+        "ssm": mamba2_init(gen, cfg.d_model, cfg.ssm_state, dtype,
+                           expand=cfg.ssm_expand),
+    }
+
+
+def ssm_block_apply(cfg, p: Params, x: torch.Tensor, cos, sin
+                    ) -> Tuple[torch.Tensor, float]:
+    """(x, aux loss 0.0), as the dense block; no RoPE (``cos``, ``sin``
+    are None)."""
+    return x + mamba2_forward(p["ssm"], rmsnorm(p["ln"], x),
+                              chunk=cfg.ssm_chunk), 0.0
+
+
+def ssm_block_prefill(cfg, p: Params, x: torch.Tensor, cos, sin
+                      ) -> Tuple[torch.Tensor, Params]:
+    h, cache = mamba2_forward(p["ssm"], rmsnorm(p["ln"], x),
+                              chunk=cfg.ssm_chunk, return_state=True)
+    return x + h, cache
+
+
+def ssm_block_decode(cfg, p: Params, x: torch.Tensor, cache: Params, pos: int
+                     ) -> Tuple[torch.Tensor, Params]:
+    """One token; ``pos`` is not used (the state has no positions)."""
+    h, cache = mamba2_decode(p["ssm"], rmsnorm(p["ln"], x), cache)
+    return x + h, cache
+
+
+def ssm_cache_spec(cfg, batch: int, seq: int) -> Dict[str, Tuple[int, ...]]:
+    """One layer's conv window and SSM state: no sequence axis."""
+    return mamba2_cache_spec(batch, cfg.d_model, cfg.ssm_state,
+                             expand=cfg.ssm_expand)
 
 
 # ------------------------------------------------------------ layer loops

@@ -7,9 +7,12 @@ positions count from the first pad), prefilled together, then decoded one
 token per step until the largest ``max_new_tokens`` is reached; finished
 slots keep decoding until the batch drains.
 
-The cache is allocated at ``max_seq`` per layer and each of the prefill's
-cache leaves (K/V, or MLA's c_kv/k_rope) is written into ``[:prompt_len]``,
-so decode step ``pos`` writes its own slot.
+The cache is allocated at ``max_seq`` per layer, as the family's cache spec
+gives it.  A prefill leaf whose spec carries the sequence axis (K/V, MLA's
+c_kv/k_rope) is written into its first ``prompt_len`` positions, so decode
+step ``pos`` writes its own slot; any other leaf (the ssm family's conv
+window and state, constant in the sequence length) is copied whole, and its
+shape must be the spec's.
 (The reference's ``_grow_cache`` pads only 4-D leaves, and its prefill cache
 is stacked over layers and 5-D, so its decode steps overwrite the last
 prompt slot; that is not copied here.)
@@ -25,8 +28,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.model import (ModelConfig, init_cache,
-                                      make_prefill_step, make_serve_step)
+from repro_torch.models.model import (ModelConfig, cache_seq_axes,
+                                      init_cache, make_prefill_step,
+                                      make_serve_step)
 
 
 @dataclasses.dataclass
@@ -60,12 +64,22 @@ class ServeEngine:
     def _grow_cache(self, prefix: List[Dict[str, torch.Tensor]], plen: int
                     ) -> List[Dict[str, torch.Tensor]]:
         """The prefill's per-layer cache (``plen`` positions) written into a
-        zeroed cache of ``max_seq`` positions, leaf by leaf."""
+        zeroed cache of ``max_seq`` positions, leaf by leaf: a leaf with a
+        sequence axis into its first ``plen`` positions, any other whole."""
         batch = next(iter(prefix[0].values())).shape[0]
         cache = init_cache(self.cfg, batch, self.max_seq, self.device)
+        axes = cache_seq_axes(self.cfg)
         for layer, pre in zip(cache, prefix):
             for key, leaf in pre.items():
-                layer[key][:, :plen] = leaf
+                axis = axes[key]
+                if axis is None:
+                    if leaf.shape != layer[key].shape:
+                        raise ValueError(f"cache leaf {key!r}: prefill shape "
+                                         f"{tuple(leaf.shape)}, spec "
+                                         f"{tuple(layer[key].shape)}")
+                    layer[key].copy_(leaf)
+                else:
+                    layer[key].narrow(axis, 0, plen).copy_(leaf)
         return cache
 
     @torch.inference_mode()

@@ -97,9 +97,9 @@ def test_registry_matches_reference_for_ported_archs():
 
 def test_unported_arch_family_and_options_raise():
     with pytest.raises(NotImplementedError):
-        get_config("mamba2-2.7b")
+        get_config("recurrentgemma-9b")
     cfg = get_smoke_config(ARCH)
-    for family in ("ssm", "hybrid"):
+    for family in ("hybrid", "encdec"):
         with pytest.raises(NotImplementedError):
             build_model(cfg.with_(family=family))
     for kw in ({"window": 8}, {"attn_bias": True}, {"norm": "layernorm"}):

@@ -44,7 +44,7 @@ from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.core import (DEVICE_STREAM, HOST_THREAD, Scenario,  # noqa: E402
                               TaskKind, graph_from_events, measure_wallclock,
                               simulate, trace_measured)
-from repro_torch.core.trace import host_span_s  # noqa: E402
+from repro_torch.core.trace import PACE_CALLS, host_span_s  # noqa: E402
 from repro_torch.data import make_batch  # noqa: E402
 from repro_torch.models import init_params, make_train_step  # noqa: E402
 from repro_torch.optim import AdamW  # noqa: E402
@@ -422,6 +422,94 @@ def test_trace_measured_keeps_the_fastest_capture():
     assert bundle.aggregates["slowest_span_s"] >= 0.05
     assert bundle.aggregates["span_s"] < 0.05
     assert host_span_s(bundle.module) == bundle.aggregates["span_s"]
+
+
+def test_scale_host_lane_scales_host_tasks_and_gaps_only():
+    """``scale_host_lane`` multiplies each host task's duration and gap by
+    the scale and leaves the device tasks; a host-bound graph's makespan
+    falls by the host's share."""
+    from repro_torch.core.kineto import scale_host_lane
+    g = graph_from_events(EVENTS)
+    before = {t.uid: (t.thread, t.duration, t.gap) for t in g.tasks()}
+    assert scale_host_lane(g, 0.5) is g
+    for t in g.tasks():
+        thread, dur, gap = before[t.uid]
+        want = 0.5 if thread == HOST_THREAD else 1.0
+        assert (t.duration, t.gap) == (dur * want, gap * want)
+    assert simulate(g).makespan < simulate(graph_from_events(EVENTS)).makespan
+
+
+def test_a_capture_s_own_key_reads_back_unscaled(tmp_path):
+    """A capture document with ``CAPTURE_KEY`` (what ``trace_measured``
+    saves: its issue time) reads back as the graph of its events, host lane
+    unscaled, with or without the key."""
+    from repro_torch.core.kineto import CAPTURE_KEY
+    from repro_torch.traceio.torch_profiler import read_torch_profiler
+    want = graph_from_events(EVENTS)
+    host = {t.uid: (t.duration, t.gap) for t in want.lane_tasks(HOST_THREAD)}
+    for key in (False, True):
+        doc = {"schemaVersion": 1, "traceEvents": EVENTS}
+        if key:
+            doc[CAPTURE_KEY] = {"issue_s": 1e-3}
+        path = tmp_path / f"w{key}.pt.trace.json"
+        path.write_text(json.dumps(doc))
+        g, _, _ = read_torch_profiler(str(path))
+        assert {t.uid: (t.duration, t.gap) for t in g.lane_tasks(HOST_THREAD)} == host
+
+
+def test_trace_measured_counts_its_calls_and_scales_nothing_on_cpu():
+    """On the CPU the operators are the device's work: no unprofiled pace
+    calls even when asked, host scale 1; ``calls`` counts warm-up and
+    captures, and each capture carries its issue time under
+    ``CAPTURE_KEY``."""
+    from repro_torch.core.kineto import CAPTURE_KEY
+    from repro_torch.core.trace import profile_trace
+    a = torch.ones(8)
+    calls = []
+
+    def step():
+        calls.append(None)
+        return (a + 1) * 2
+
+    bundle = trace_measured(step, device="cpu", warmup=2, profiles=2,
+                            pace_calls=PACE_CALLS)
+    agg = bundle.aggregates
+    assert len(calls) == agg["calls"] == 4
+    assert agg["host_scale"] == 1.0 and agg["unprofiled_issue_s"] is None
+    assert agg["issue_s"] > 0
+    assert profile_trace(step, device="cpu")[CAPTURE_KEY]["issue_s"] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("pace_calls", [0, PACE_CALLS])
+def test_trace_measured_reports_the_host_scale_on_cuda(pace_calls):
+    """On the card ``trace_measured`` times ``pace_calls`` calls without the
+    profiler and reports the median of their issue times over the kept
+    capture's host-lane total (at most 1) as the host scale, leaving the
+    graph as captured; without pace calls the scale is 1.  ``calls`` counts
+    every call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    a = torch.ones(1 << 10, device="cuda")
+    calls = []
+
+    def step():
+        calls.append(None)
+        for _ in range(50):
+            a.add_(1.0)
+
+    bundle = trace_measured(step, device="cuda", warmup=1, profiles=2,
+                            pace_calls=pace_calls)
+    agg = bundle.aggregates
+    assert len(calls) == agg["calls"] == 3 + pace_calls
+    lane = sum(t.duration + t.gap for t in bundle.graph.lane_tasks(HOST_THREAD))
+    assert lane == pytest.approx(agg["host_lane_s"])
+    if pace_calls:
+        assert 0 < agg["host_scale"] <= 1.0
+        assert agg["host_scale"] == pytest.approx(min(
+            1.0, agg["unprofiled_issue_s"] / agg["host_lane_s"]))
+    else:
+        assert agg["host_scale"] == 1.0 and agg["unprofiled_issue_s"] is None
 
 
 def test_measure_wallclock_on_cpu(cpu_bundle):
