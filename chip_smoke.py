@@ -5,7 +5,7 @@
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: every CUDA C++ kernel in ``src/repro_torch/csrc`` with nvcc (all at
-   once), and Triton's import;
+   once: flash attention's two, RMSNorm, fused_adam, dgc);
 3. kernels: each kernel against its plain PyTorch version on the card over the
    JAX package's kernel-test sweeps (``tests/test_kernels.py``) and the
    main-path shapes; flash attention also over the tensor-core kernel's edges
@@ -23,9 +23,12 @@
    as its tensor-core kernel; flash attention with v's own head dim (q/k up
    to 192, v up to 128) over its sweep and gradients; then flash attention
    checked and timed at deepseek-v2-236b's MLA shapes beside SDPA (phase
-   12's), flash attention, RMSNorm and fused_adam at the moe model's
+   12's), with RMSNorm at its q_norm and strided kv_norm widths,
+   flash attention, RMSNorm and fused_adam at the moe model's
    shapes (phase 11's), and RMSNorm at mamba2-2.7b's 2560 and 5120 columns
-   (phase 13's);
+   (phase 13's); flash attention at head dim 256 (recurrentgemma-9b's, on
+   the CUDA-core kernel) over its sweep and gradients, and timed at that
+   model's serve shape beside SDPA;
 4. serve: tinyllama-1.1b at full width in bf16 from a seeded generator, four
    requests of 128-512 prompt tokens and 32 new tokens each through
    ``ServeEngine.generate``, with the kernels' launch counts read around that
@@ -217,6 +220,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -297,7 +301,22 @@ FLASH_MLA = [(1, 4, 4, 300, 192, 128), (2, 8, 2, 130, 192, 128), (1, 4, 4, 64, 2
              (1, 4, 2, 200, 192, 16), (1, 4, 4, 100, 24, 128), (1, 2, 2, 1, 192, 128),
              (1, 4, 4, 257, 136, 128)]
 FLASH_MLA_GRAD = [(1, 4, 4, 256, 192, 128), (1, 4, 2, 96, 24, 16)]
+# head dim 256, past the tensor-core kernel's buckets, on the CUDA-core
+# kernel: recurrentgemma-9b's MQA (16 query heads, one KV head; the
+# reference's src/repro/configs/recurrentgemma_9b.py) from one token to
+# 1024, and v of 256 and of 128 beside q/k 256; forward, and the gradients
+# at FLASH_D256_GRAD; timed at RG_SERVE (B, H, KH, S, D): its serve prefill
+FLASH_D256 = [(1, 16, 1, S, 256) for S in (1, 7, 300, 1024)] + [
+    (2, 4, 2, 130, 256, 256), (2, 4, 2, 130, 256, 128)]
+FLASH_D256_GRAD = [(1, 4, 1, 256, 256)]
+RG_SERVE = (4, 16, 1, 512, 256)
 RMS_SWEEP = [(4, 64), (3, 5, 300), (16, 1024), (1, 7)]
+# RMSNorm's other paths: the families' widths (deepseek's 1536, mamba2's 2560
+# and 5120, recurrentgemma's 4096: two to eight warps a row), rows past
+# the register widths (the loop over the row in chunks) and an odd width
+# (one element a load); and each width again with x one element past an
+# aligned base (one element a load, in chunks past 1280 columns)
+RMS_WIDE = [(64, 1536), (64, 2560), (64, 5120), (16, 4096), (8, 20000), (3, 2049)]
 ADAM_SWEEP = [100, 1024, 5000, 1 << 14]
 DGC_SWEEP = [((100,), 0.1), ((123, 45), 0.01), ((4096,), 0.001)]
 FLASH_ATOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
@@ -590,11 +609,12 @@ def profiled_event_ms(fn, iters: int = 20) -> tuple[Profile, float]:
     (``_sleep_names``) is left out of the profile.  Its host time is the time
     to queue the calls.  The calls ran back to back only if the host had
     queued them all, from the first event on, within the sleep as the events
-    time it: the profiler slows the host's launches (a Triton launch to
-    ~90 us beside an H100), and a sleep sized from the host's pace without
-    it once ended first.  So the sleep is 8 times that pace plus 4 ms, and a
-    session that fails this, or that has no device record, is run again (the
-    sleep four times longer), up to PROFILE_TRIES sessions."""
+    time it: the profiler slows the host's launches (an RMSNorm launch,
+    through Triton then, to ~90 us beside an H100), and a sleep sized from
+    the host's pace without it once ended first.  So the sleep is 8 times
+    that pace plus 4 ms, and a session that fails this, or that has no
+    device record, is run again (the sleep four times longer), up to
+    PROFILE_TRIES sessions."""
     sleep_ms = 8 * _host_queue_ms(fn, iters)[0] + 4.0
     cycles_per_ms = _sleep_cycles_per_ms()
     _sleep_names()
@@ -701,15 +721,43 @@ def device_phase() -> str:
 def build_phase() -> None:
     t0 = time.perf_counter()
     libs = _build.build_all()
-    t1 = time.perf_counter()
-    import triton
-    print(f"build: nvcc {t1 - t0:.2f}s for {sorted(libs)}; "
-          f"triton {triton.__version__} imported in "
-          f"{time.perf_counter() - t1:.2f}s (its kernels compile at first launch)")
+    print(f"build: nvcc {time.perf_counter() - t0:.2f}s for the {len(libs)} sources "
+          f"{sorted(libs)}, one nvcc each, all at once")
+    demangle = shutil.which("cu++filt") or shutil.which("c++filt")
     for path in libs.values():
-        for line in path.with_suffix(".log").read_text().splitlines():
-            if any(w in line for w in ("registers", "spill", "Performance", "setmaxnreg")):
+        log = path.with_suffix(".log").read_text()
+        for line in log.splitlines():
+            if any(w in line for w in ("Performance", "setmaxnreg")):
                 print(f"  ptxas {path.stem.split('-')[0]}:", line.strip()[:160])
+        kernels = _ptxas_report(log, demangle)
+        spilled = [k for k, (_, spill) in kernels.items() if spill]
+        print(f"  ptxas {path.stem.split('-')[0]}: {len(kernels)} kernels, registers "
+              f"{min(r for r, _ in kernels.values())}-{max(r for r, _ in kernels.values())}"
+              f", {len(spilled)} with spills" + "".join(
+                  f"\n    {k}: {r} registers, {sp} B spilled" for k, (r, sp) in kernels.items()
+                  if sp or any(w in k for w in ("256", "rmsnorm_rows<__nv_bfloat16, __"))))
+
+
+def _ptxas_report(log: str, demangle) -> dict:
+    """nvcc's ``-Xptxas -v`` report: kernel -> (registers, spill bytes
+    stored and loaded), the names demangled where a demangler is found."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )(\w+)", line)
+        if m:
+            cur = m.group(1)
+        elif cur and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                     line)):
+            out[cur] = (out.get(cur, (0, 0))[0], int(m[1]) + int(m[2]))
+        elif cur and (m := re.search(r"Used (\d+) registers", line)):
+            out[cur] = (int(m[1]), out.get(cur, (0, 0))[1])
+    if demangle and out:
+        names = subprocess.run([demangle, "-p"], input="\n".join(out), text=True,
+                               capture_output=True, timeout=60).stdout.split("\n")
+        if len(names) >= len(out):
+            out = {n.replace("(anonymous namespace)::", ""): v
+                   for n, v in zip(names, out.values())}
+    return out
 
 
 def _sdpa_backends(q, k, v) -> dict:
@@ -777,6 +825,36 @@ def _flash_entry(gen, cfg, batch: int, seq: int) -> dict:
     return entry
 
 
+def _flash_d256_entry(gen) -> dict:
+    """Flash attention at recurrentgemma-9b's serve prefill (RG_SERVE: 4 x
+    512 tokens, 16 query heads and one KV head of 256) as bf16 (B, S, H, D)
+    views, causal: it must launch the CUDA-core kernel (past the tensor-core
+    kernel's head dims); checked, then timed beside its plain version and
+    SDPA and bounded."""
+    B, H, KH, S, D = RG_SERVE
+    bf = torch.bfloat16
+    q, k, v = (randn(gen, B, S, h, D, dtype=bf).transpose(1, 2) for h in (H, KH, KH))
+    out, variant = _counted_variant(lambda: ops.flash_attention(q, k, v))
+    err = max_err(out, ref.flash_attention_ref(q, k, v))
+    if not (err <= FLASH_ATOL[bf] and variant == "scalar"):
+        fail(f"flash at {tuple(q.shape)}: {err} on {variant} (want scalar)")
+    entry = {"max_abs_err": err, "variant": variant,
+             **timings(f"flash_attention q {tuple(q.shape)} (head dim 256)",
+                       lambda: ops.flash_attention(q, k, v),
+                       lambda: ref.flash_attention_ref(q, k, v),
+                       lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                                              enable_gqa=True)),
+             **bound(*kernel_cost.flash_attention(B, H, KH, S, D, causal=True, itemsize=2)),
+             "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal"}
+    entry["share_of_bound"] = entry["bound_ms"] / entry["ms"]
+    entry["ratio_to_library"] = entry["ms"] / entry["library_ms"]
+    print(f"kernels: flash at {entry['shape']}: CUDA-core kernel {entry['ms']:.5f} ms device "
+          f"({entry['share_of_bound']:.1%} of its {entry['bound_ms']:.5f} ms bound, by "
+          f"{entry['bound_by']}), SDPA {entry['library_ms']:.5f} ms (ratio "
+          f"{entry['ratio_to_library']:.3f}), plain {entry['plain_ms']:.4f} ms")
+    return entry
+
+
 def _flash_inputs(gen, B, H, KH, S, D, dt, layout: str, pad: int = 0, Dv=None):
     """q, k as (B, H|KH, S, D) and v as (B, KH, S, Dv) (Dv defaults to D):
     contiguous ("bhsd"), (B, S, H, D) tensors viewed ("bshd"), or rows of
@@ -787,13 +865,34 @@ def _flash_inputs(gen, B, H, KH, S, D, dt, layout: str, pad: int = 0, Dv=None):
     return tuple(randn(gen, B, h, S, d + pad, dtype=dt)[..., :d] for h, d in dims)
 
 
+def _want_variant(dt, D: int, Dv: int, pad: int = 0) -> str:
+    """The flash kernel an input must take: ``wgmma`` for bf16 with both head
+    dims multiples of 8 within its buckets (q/k <= 192, v <= 128) and
+    aligned rows, ``scalar`` for the rest."""
+    return ("wgmma" if dt == torch.bfloat16 and D % 8 == 0 and Dv % 8 == 0
+            and pad % 8 == 0 and D <= flash_kernel.WGMMA_MAX_D
+            and Dv <= flash_kernel.WGMMA_MAX_D_V else "scalar")
+
+
+def _counted_variant(call) -> tuple:
+    """``call()``'s result and the flash kernel it launched, read from the
+    launch counts per kernel (``launches_by_variant``); None unless exactly
+    one launch was counted."""
+    before = dict(flash_kernel.launches_by_variant)
+    out = call()
+    rose = {v: n - before[v] for v, n in flash_kernel.launches_by_variant.items()
+            if n != before[v]}
+    return out, (next(iter(rose)) if list(rose.values()) == [1] else None)
+
+
 def flash_sweep(gen, shapes) -> float:
     """Flash attention against its plain version over ``shapes`` ((B, H, KH,
     S, D) or (B, H, KH, S, D, Dv)) in f32 and bf16, causal and not,
     contiguous and as (B, S, H, D) views, and over the bf16 inputs that the
-    CUDA-core kernel takes; prints the kernel each case took and fails
-    unless f32 and those bf16 inputs took "scalar" and every other bf16
-    input "wgmma".  Returns the largest error."""
+    CUDA-core kernel takes; prints the kernel each case launched (by the
+    launch counts per kernel) and fails unless f32, those bf16 inputs and
+    head dims past the tensor-core kernel's launched "scalar" and every
+    other bf16 input "wgmma".  Returns the largest error."""
     cases = [(s, dt, c, layout, 0) for dt in (torch.float32, torch.bfloat16)
              for c in (True, False) for s in shapes for layout in ("bhsd", "bshd")]
     cases += [(s, torch.bfloat16, c, "padded", pad) for s, pad in FLASH_SCALAR_BF16
@@ -802,14 +901,12 @@ def flash_sweep(gen, shapes) -> float:
     for (B, H, KH, S, D, *rest), dt, causal, layout, pad in cases:
         Dv = rest[0] if rest else D
         q, k, v = _flash_inputs(gen, B, H, KH, S, D, dt, layout, pad, Dv)
-        variant = flash_kernel._variant(q, k, v)
-        want = ("wgmma" if dt == torch.bfloat16 and D % 8 == 0 and Dv % 8 == 0
-                and pad % 8 == 0 else "scalar")
-        err = max_err(ops.flash_attention(q, k, v, causal=causal),
-                      ref.flash_attention_ref(q, k, v, causal=causal))
+        want = _want_variant(dt, D, Dv, pad)
+        out, variant = _counted_variant(lambda: ops.flash_attention(q, k, v, causal=causal))
+        err = max_err(out, ref.flash_attention_ref(q, k, v, causal=causal))
         worst = max(worst, err)
         name = f"{(B, H, KH, S, D, *rest)} {str(dt)[6:]} causal={causal} {layout}"
-        took.setdefault(variant, []).append(name)
+        took.setdefault(str(variant), []).append(name)
         if not (err <= FLASH_ATOL[dt] and variant == want):
             bad.append(f"flash {name}: {err} on {variant} (want {want})")
     sync()
@@ -821,12 +918,13 @@ def flash_sweep(gen, shapes) -> float:
     return worst
 
 
-def _rms_entry(gen, cfg, rows: int, cols: int = 0) -> dict:
+def _rms_entry(gen, cfg, rows: int, cols: int = 0, width: int = 0) -> dict:
     """RMSNorm at a main-path shape, bf16, over ``cols`` columns (default
-    d_model): checked against its plain version (failing past RMS_ATOL),
+    d_model) of rows ``width`` apart (default ``cols``; MLA's kv_norm reads
+    512 of 576): checked against its plain version (failing past RMS_ATOL),
     then the kernel, the plain version and ``F.rms_norm`` timed."""
     cols = cols or cfg.d_model
-    x = randn(gen, rows, cols, dtype=torch.bfloat16)
+    x = randn(gen, rows, width or cols, dtype=torch.bfloat16)[:, :cols]
     w = randn(gen, cols, dtype=torch.bfloat16)
     err = max_err(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
     if not err <= RMS_ATOL[torch.bfloat16]:
@@ -837,7 +935,8 @@ def _rms_entry(gen, cfg, rows: int, cols: int = 0) -> dict:
                       lambda: ops.rmsnorm(x, w), lambda: ref.rmsnorm_ref(x, w),
                       lambda: F.rms_norm(x, (cols,), w, 1e-6)),
             **bound(*kernel_cost.rmsnorm(rows, cols, itemsize=2)),
-            "shape": f"x {tuple(x.shape)} bf16"}
+            "shape": f"x {tuple(x.shape)} bf16" + (f", rows {width} apart" if width else ""),
+            "plan": rmsnorm_kernel._plan(x, w)._asdict()}
 
 
 def kernel_phase(cfg, batch: int, seq: int) -> list:
@@ -855,15 +954,30 @@ def kernel_phase(cfg, batch: int, seq: int) -> list:
     mla = flash_sweep(gen, FLASH_MLA)
     print(f"kernels: flash with v's own head dim (q/k 24/136/192, v 16/128): "
           f"largest abs error {mla} (atol 2e-3 f32 / 3e-2 bf16)")
-    worst["flash_attention"] = max(worst["flash_attention"], small, mla)
+    d256 = flash_sweep(gen, FLASH_D256)
+    print(f"kernels: flash at head dim 256 (q/k 256, v 256/128; S 1 to 1024): "
+          f"largest abs error {d256} (atol 2e-3 f32 / 3e-2 bf16)")
+    worst["flash_attention"] = max(worst["flash_attention"], small, mla, d256)
+    plans, calls, before = set(), 0, rmsnorm_kernel.launches
     for dt in (torch.float32, torch.bfloat16):
-        for shape in RMS_SWEEP + [(batch * seq, cfg.d_model), (batch, 1, cfg.d_model),
-                                  (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)]:
-            x, w = randn(gen, *shape, dtype=dt), randn(gen, shape[-1])
+        for shape, offset in [(s, 0) for s in RMS_SWEEP + RMS_WIDE + [
+                (batch * seq, cfg.d_model), (batch, 1, cfg.d_model),
+                (TRAIN_BATCH * TRAIN_SEQ, cfg.d_model)]] + [(s, 1) for s in RMS_WIDE]:
+            n = math.prod(shape)
+            x = randn(gen, n + offset, dtype=dt)[offset:].view(shape)
+            w = randn(gen, shape[-1])
+            plans.add(rmsnorm_kernel._plan(x, w))
             err = max_err(ops.rmsnorm(x, w), ref.rmsnorm_ref(x, w))
+            calls += 1
             worst["rmsnorm"] = max(worst.get("rmsnorm", 0), err)
             if not err <= RMS_ATOL[dt]:
-                bad.append(f"rmsnorm {shape} {dt}: {err}")
+                bad.append(f"rmsnorm {shape} {dt} offset {offset}: {err}")
+    if rmsnorm_kernel.launches - before != calls:
+        bad.append(f"rmsnorm: {rmsnorm_kernel.launches - before} launches for {calls} calls")
+    print("kernels: rmsnorm's launch plans over the sweep (vec, loads a thread, warps a "
+          "row, rows a block, grid): " + "; ".join(
+              f"{p.vec}/{p.nv}/{p.warps_per_row}/{p.rows_per_block}/{p.grid}"
+              for p in sorted(plans)))
     # MLA's q_norm and kv_norm as deepseek's prefill runs them: q_lora
     # columns, and kv_lora columns sliced from rows of kv_lora + qk_rope
     ds = get_config(DEEPSEEK_ARCH)
@@ -890,8 +1004,9 @@ def kernel_phase(cfg, batch: int, seq: int) -> list:
              "replaces": "src/repro/kernels/flash_attention.py:31",
              **_flash_entry(gen, cfg, batch, seq),
              "train_shape": _flash_entry(gen, cfg, TRAIN_BATCH, TRAIN_SEQ)}
-    rms = {"name": "rmsnorm", "route": "triton",
-           "source": "src/repro_torch/kernels/rmsnorm.py",
+    flash["head_dim_256"] = _flash_d256_entry(gen)
+    rms = {"name": "rmsnorm", "route": "cuda",
+           "source": "src/repro_torch/csrc/rmsnorm.cu",
            "replaces": "src/repro/kernels/rmsnorm.py:24",
            **_rms_entry(gen, cfg, batch * seq),
            "train_shape": _rms_entry(gen, cfg, TRAIN_BATCH * TRAIN_SEQ)}
@@ -908,9 +1023,11 @@ def grad_phase(gen, train_flash, train_x) -> None:
     """Gradients through FlashAttentionFn and RMSNormFn (kernel forward,
     plain backward) against autograd of the plain versions, over the sweeps
     and at the train shapes (bf16, causal), within atol 5e-3 f32 / 5e-2 bf16
-    plus one bf16 ulp of the reference (GRAD_RTOL)."""
+    plus one bf16 ulp of the reference (GRAD_RTOL); each forward must launch
+    the flash kernel ``_want_variant`` names (the CUDA-core kernel at head
+    dim 256)."""
     bf = torch.bfloat16
-    cases = [(s, dt, c) for s in FLASH_SWEEP + FLASH_MLA_GRAD
+    cases = [(s, dt, c) for s in FLASH_SWEEP + FLASH_MLA_GRAD + FLASH_D256_GRAD
              for dt in (torch.float32, bf) for c in (True, False)] + [(train_flash, bf, True)]
     worst, bad = {}, []
     for (B, H, KH, S, D, *rest), dt, causal in cases:
@@ -918,15 +1035,19 @@ def grad_phase(gen, train_flash, train_x) -> None:
         q, k, v, do = (randn(gen, *s, dtype=dt) for s in
                        ((B, H, S, D), (B, KH, S, D), (B, KH, S, Dv), (B, H, S, Dv)))
         leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        got = torch.autograd.grad(ops.flash_attention(*leaves, causal=causal), leaves, do)
+        out, variant = _counted_variant(lambda: ops.flash_attention(*leaves, causal=causal))
+        if variant != _want_variant(dt, D, Dv):
+            bad.append(f"flash forward {(B, H, KH, S, D, Dv)} {dt} launched {variant}, "
+                       f"not {_want_variant(dt, D, Dv)}")
+        got = torch.autograd.grad(out, leaves, do)
         want = _autograd(lambda *a: ref.flash_attention_ref(*a, causal=causal),
                          (q, k, v), do)
         for name, a, b in zip(("dq", "dk", "dv"), got, want):
             err = max_err(a, b)
             worst["flash_attention"] = max(worst.get("flash_attention", 0), err)
             if not (_grad_close(a, b, dt) and a.dtype == b.dtype):
-                bad.append(f"flash {name} {(B, H, KH, S, D)} {dt} causal={causal}: {err}")
-        del q, k, v, do, leaves, got, want
+                bad.append(f"flash {name} {(B, H, KH, S, D, Dv)} {dt} causal={causal}: {err}")
+        del q, k, v, do, leaves, out, got, want
     for shape, dt in [(s, dt) for s in RMS_SWEEP for dt in (torch.float32, bf)] + \
             [(train_x, bf)]:
         x, dy, w = randn(gen, *shape, dtype=dt), randn(gen, *shape, dtype=dt), \
@@ -3313,19 +3434,29 @@ def _moe_train(cfg) -> tuple:
 def deepseek_kernel_phase() -> list:
     """Flash attention at deepseek-v2-236b's MLA shapes (q/k head dim 192, v
     head dim 128, 128 heads with their own K): the serve prefill's and the
-    train step's, checked, timed beside SDPA and bounded.  Run early, right
-    after the kernel phase (before ``moe_kernel_phase``)."""
+    train step's, checked, timed beside SDPA and bounded; RMSNorm at the
+    serve prefill's q_norm (q_lora columns) and kv_norm (kv_lora columns of
+    rows kv_lora + qk_rope wide, read in place), timed beside
+    ``F.rms_norm``.  Run early, right after the kernel phase (before
+    ``moe_kernel_phase``)."""
     cfg = get_config(DEEPSEEK_ARCH)
     gen = torch.Generator(device=DEV).manual_seed(3)
+    tokens = len(PROMPT_LENS) * max(PROMPT_LENS)
     rows = [{"name": "flash_attention", "path": "serve prefill",
              **_flash_entry(gen, cfg, len(PROMPT_LENS), max(PROMPT_LENS))},
             {"name": "flash_attention", "path": "train",
-             **_flash_entry(gen, cfg, MOE_TRAIN_BATCH, TRAIN_SEQ)}]
+             **_flash_entry(gen, cfg, MOE_TRAIN_BATCH, TRAIN_SEQ)},
+            {"name": "rmsnorm", "path": "serve prefill (q_norm)",
+             **_rms_entry(gen, cfg, tokens, cfg.q_lora)},
+            {"name": "rmsnorm", "path": "serve prefill (kv_norm)",
+             **_rms_entry(gen, cfg, tokens, cfg.kv_lora, cfg.kv_lora + cfg.qk_rope)}]
     for r in rows:
+        r["share_of_bound"] = r["bound_ms"] / r["ms"]
+        scalar = (f"CUDA-core kernel {r['scalar_ms']:.4f} ms, " if "scalar_ms" in r else "")
         print(f"kernels: deepseek {r['name']} at {r['shape']} ({r['path']}): "
               f"{r['ms']:.5f} ms device, bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
-              f"{r['share_of_bound']:.1%}), CUDA-core kernel {r['scalar_ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, SDPA {r['library_ms']:.5f} ms, max abs err "
+              f"{r['share_of_bound']:.1%}), {scalar}plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.5f} ms, max abs err "
               f"{r['max_abs_err']:.3g}")
     torch.cuda.empty_cache()
     return rows
@@ -4139,7 +4270,8 @@ def main() -> None:
             "call_ms", "shape",
             "launches_by_path", "launches_per_train_step"]
     extra = ["scalar_ms", "scalar_max_abs_err", "share_of_bound", "ratio_to_library",
-             "scalar_source", "launches_by_variant", "train_shape", "library_call"]
+             "scalar_source", "launches_by_variant", "train_shape", "library_call",
+             "head_dim_256", "plan"]
     total = time.perf_counter() - t0
     print(f"chip_smoke: all phases passed in {total:.1f}s; by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))

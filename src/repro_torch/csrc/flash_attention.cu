@@ -33,11 +33,16 @@
 //
 // q and k have one head dim (Dqk) and v and the output another (Dv), as
 // DeepSeek-V2's multi-head latent attention needs (Dqk 192 = 128 + 64 rope
-// columns, Dv 128).  The kernel is instantiated for Dqk buckets of 64, 128
-// and 192 columns and Dv buckets of 64 and 128; Dqk = Dv takes the bucket
-// pairs (64, 64) and (128, 128) that a single head dim always took.  At
-// (192, 128) the shared memory is 32 x 192 (Q) + 32 x 196 (K) + 32 x 128 (V)
-// + 32 x 32 (P) floats, 70.1 KB.
+// columns, Dv 128).  The kernel is instantiated for Dqk buckets of 64, 128,
+// 192 and 256 columns and Dv buckets of 64, 128 and 256; Dqk = Dv takes the
+// bucket pairs (64, 64), (128, 128) and (256, 256).  Head dim 256 is
+// RecurrentGemma's (16 query heads, one KV head).  At (192, 128) the shared
+// memory is 32 x 192 (Q) + 32 x 196 (K) + 32 x 128 (V) + 32 x 32 (P) floats,
+// 70.1 KB; at (256, 256) 32 x 256 + 32 x 260 + 32 x 256 + 32 x 32 floats,
+// 102,912 B, within the 227 KB a block may opt into.  At Dv 256 a lane
+// accumulates 8 output columns for each of its 8 rows (64 floats), read from
+// V as two float4s 128 columns apart, so the lanes' reads stay free of bank
+// conflicts.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,6 +77,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
+// The output column of a lane's i-th accumulator: DPL adjacent columns for
+// DPL <= 4; for DPL 8, four adjacent columns in each half of the 256, so a
+// warp's float4 reads of a V row cover 512 contiguous bytes twice.
+template <int DPL>
+__device__ __forceinline__ int out_col(int lane, int i) {
+  if constexpr (DPL == 8) return (i >> 2) * 128 + lane * 4 + (i & 3);
+  return lane * DPL + i;
+}
+
 struct Strides {  // in elements; the last (D) stride is 1
   long long b, h, s;
 };
@@ -91,7 +105,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           Strides sq, Strides sk, Strides sv, Strides so) {
   constexpr int KPAD = DQK + 4;
   constexpr int DPL = DV / 32;  // output columns per lane
-  static_assert(DPL == 2 || DPL == 4, "DV must be 64 or 128");
+  static_assert(DPL == 2 || DPL == 4 || DPL == 8, "DV must be 64, 128 or 256");
   static_assert(DQK % 4 == 0, "DQK must be a multiple of 4");
   extern __shared__ __align__(16) float smem[];
   float* Qs = smem;                    // [kBlockQ][DQK], pre-scaled
@@ -175,14 +189,19 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     }
     __syncwarp();
 
-    // acc += P . V; lane owns columns [lane * DPL, lane * DPL + DPL)
+    // acc += P . V; lane owns the columns out_col<DPL>(lane, 0 .. DPL - 1)
 #pragma unroll 2
     for (int j = 0; j < kBlockK; j += 4) {
       float vv[4][DPL];
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        const float* vrow = Vs + (j + jj) * DV + lane * DPL;
-        if constexpr (DPL == 4) {
+        const float* vrow = Vs + (j + jj) * DV + out_col<DPL>(lane, 0);
+        if constexpr (DPL == 8) {
+          const float4 x = *reinterpret_cast<const float4*>(vrow);
+          const float4 y = *reinterpret_cast<const float4*>(vrow + 128);
+          vv[jj][0] = x.x; vv[jj][1] = x.y; vv[jj][2] = x.z; vv[jj][3] = x.w;
+          vv[jj][4] = y.x; vv[jj][5] = y.y; vv[jj][6] = y.z; vv[jj][7] = y.w;
+        } else if constexpr (DPL == 4) {
           const float4 x = *reinterpret_cast<const float4*>(vrow);
           vv[jj][0] = x.x; vv[jj][1] = x.y; vv[jj][2] = x.z; vv[jj][3] = x.w;
         } else {
@@ -208,7 +227,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     const float inv = 1.f / fmaxf(l[r], 1e-20f);
 #pragma unroll
     for (int i = 0; i < DPL; ++i) {
-      const int d = lane * DPL + i;
+      const int d = out_col<DPL>(lane, i);
       if (d < Dv) ob[qpos * so.s + d] = from_float<T>(acc[r][i] * inv);
     }
   }
@@ -229,18 +248,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   return cudaGetLastError();
 }
 
-// The instantiation for a head-dim pair: Dqk in buckets of 64, 128, 192 and
-// Dv in buckets of 64, 128.
+// The instantiation for a head-dim pair: Dqk in buckets of 64, 128, 192, 256
+// and Dv in buckets of 64, 128, 256.
+template <typename T, int DQK>
+cudaError_t dispatch_dv(const void* q, const void* k, const void* v, void* o, int B, int H,
+                        int KH, int S, int D, int Dv, int causal, float scale_log2,
+                        Strides sq, Strides sk, Strides sv, Strides so, cudaStream_t st) {
+#define REPRO_FLASH_LAUNCH(DV) \
+  launch<T, DQK, DV>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq, sk, sv, so, st)
+  if (Dv <= 64) return REPRO_FLASH_LAUNCH(64);
+  if (Dv <= 128) return REPRO_FLASH_LAUNCH(128);
+  return REPRO_FLASH_LAUNCH(256);
+#undef REPRO_FLASH_LAUNCH
+}
+
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
                      int KH, int S, int D, int Dv, int causal, float scale_log2, Strides sq,
                      Strides sk, Strides sv, Strides so, cudaStream_t st) {
-#define REPRO_FLASH_LAUNCH(DQK, DV) \
-  launch<T, DQK, DV>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq, sk, sv, so, st)
-  if (D <= 64) return Dv <= 64 ? REPRO_FLASH_LAUNCH(64, 64) : REPRO_FLASH_LAUNCH(64, 128);
-  if (D <= 128) return Dv <= 64 ? REPRO_FLASH_LAUNCH(128, 64) : REPRO_FLASH_LAUNCH(128, 128);
-  return Dv <= 64 ? REPRO_FLASH_LAUNCH(192, 64) : REPRO_FLASH_LAUNCH(192, 128);
-#undef REPRO_FLASH_LAUNCH
+#define REPRO_FLASH_DISPATCH(DQK) \
+  dispatch_dv<T, DQK>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq, sk, sv, so, st)
+  if (D <= 64) return REPRO_FLASH_DISPATCH(64);
+  if (D <= 128) return REPRO_FLASH_DISPATCH(128);
+  if (D <= 192) return REPRO_FLASH_DISPATCH(192);
+  return REPRO_FLASH_DISPATCH(256);
+#undef REPRO_FLASH_DISPATCH
 }
 
 }  // namespace
@@ -249,7 +281,7 @@ extern "C" {
 
 // q: (B, H, S, D); k: (B, KH, S, D); v: (B, KH, S, Dv); o: (B, H, S, Dv),
 // addressed through the given strides (elements; the last dim contiguous).
-// D <= 192, Dv <= 128.  dtype: 0 = float32, 1 = bfloat16.  scale_log2 is
+// D <= 256, Dv <= 256.  dtype: 0 = float32, 1 = bfloat16.  scale_log2 is
 // log2(e) / sqrt(D).  Returns cudaGetLastError() after the launch.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                               int dtype, int B, int H, int KH, int S, int D, int Dv,
@@ -257,8 +289,8 @@ int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void*
                               long long sqs, long long skb, long long skh, long long sks,
                               long long svb, long long svh, long long svs, long long sob,
                               long long soh, long long sos, void* stream) {
-  if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || D <= 0 || D > 192 ||
-      Dv <= 0 || Dv > 128 || H > 65535 || B > 65535 || (dtype != 0 && dtype != 1))
+  if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || D <= 0 || D > 256 ||
+      Dv <= 0 || Dv > 256 || H > 65535 || B > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs}, so{sob, soh, sos};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

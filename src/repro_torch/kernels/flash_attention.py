@@ -12,11 +12,15 @@ from dtype, head dim, base pointers and strides alone, before the launch:
   tensor cores;
 * ``"scalar"``, ``repro_torch/csrc/flash_attention.cu``: everything else, on
   the f32 CUDA cores.  f32 stays there because it must meet atol 2e-3, which
-  TF32 tensor cores do not; bf16 with an odd head dim or unaligned strides
-  goes there too.
+  TF32 tensor cores do not; bf16 with an odd head dim, unaligned strides or
+  a head dim past the tensor-core kernel's (RecurrentGemma's 256) goes
+  there too.
 
 q and k share one head dim ``D`` and v and the output have their own,
-``D_v`` (DeepSeek-V2's MLA: 192 and 128); ``D <= 192`` and ``D_v <= 128``.
+``D_v`` (DeepSeek-V2's MLA: 192 and 128); ``D <= 256`` and ``D_v <= 256``
+(``MAX_D``, ``MAX_D_V``: the CUDA-core kernel's limits; the tensor-core
+kernel's are ``WGMMA_MAX_D``, ``WGMMA_MAX_D_V``).  Past them the wrapper
+raises, where the reference pads D to a multiple of 128.
 The scale is ``1/sqrt(D)``.
 
 A build or launch error of either kernel raises; nothing falls back to the
@@ -49,7 +53,8 @@ launches = 0   # kernel launches since the last reset (see ops.launch_counts)
 launches_by_variant = {"wgmma": 0, "scalar": 0}   # the same launches, per kernel
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_D, MAX_D_V = 192, 128   # q/k's and v's largest head dims
+MAX_D, MAX_D_V = 256, 256   # q/k's and v's largest head dims: the CUDA-core kernel's
+WGMMA_MAX_D, WGMMA_MAX_D_V = 192, 128   # the tensor-core kernel's largest
 _LIBS = {"scalar": ("flash_attention", "repro_flash_attention_fwd"),
          "wgmma": ("flash_attention_wgmma", "repro_flash_attention_wgmma_fwd")}
 
@@ -71,8 +76,8 @@ def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"wgmma"`` where the tensor-core kernel takes q, k, v, else
     ``"scalar"``: from dtype, head dims, base pointers and strides only."""
     D, Dv = q.shape[-1], v.shape[-1]
-    if (q.dtype != torch.bfloat16 or D % 8 or Dv % 8 or D > MAX_D
-            or Dv > MAX_D_V):
+    if (q.dtype != torch.bfloat16 or D % 8 or Dv % 8 or D > WGMMA_MAX_D
+            or Dv > WGMMA_MAX_D_V):
         return "scalar"
     for t in (q, k, v):
         if t.data_ptr() % 16 or any(s <= 0 or s % 8 for s in t.stride()[:3]):

@@ -30,7 +30,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, block_q: int = 128,
                     block_k: int = 128) -> torch.Tensor:
     """q: (B, H, S, D); k: (B, KH, S, D); v: (B, KH, S, D_v) -> (B, H, S, D_v)
-    in q's dtype (D <= 192, D_v <= 128; the scale is ``1/sqrt(D)``).
+    in q's dtype (D <= 256, D_v <= 256; the scale is ``1/sqrt(D)``; past
+    those the kernels' wrapper raises, where the reference pads D).
 
     ``block_q``/``block_k`` are the reference's tile keywords, accepted so its
     callers run unchanged and ignored: the CUDA kernels choose their tiles."""

@@ -64,11 +64,16 @@ def _padded_rows(B, H, KH, S, D, pad, dtype=bf16):
     (lambda: _mla(1, 4, 64, 200, 128), "scalar"),
     (lambda: _mla(1, 4, 64, 192, 136), "scalar"),
     (lambda: _mla(1, 4, 64, 192, 12), "scalar"),
+    (lambda: _bhsd(1, 16, 1, 512, 256), "scalar"),
+    (lambda: _bshd_views(4, 16, 1, 512, 256), "scalar"),
+    (lambda: _mla(1, 4, 64, 256, 128), "scalar"),
+    (lambda: _mla(1, 4, 64, 192, 256), "scalar"),
 ], ids=["bf16-d64", "bf16-d128", "bf16-d80", "bf16-bshd-view",
         "bf16-bshd-view-ragged-d80", "f32", "f32-bshd-view", "bf16-d12",
         "bf16-s-stride-68", "bf16-s-stride-72", "bf16-mla-192-128",
         "bf16-mla-smoke-24-16", "bf16-qk136-v128", "f32-mla-192-128",
-        "bf16-qk200", "bf16-v136", "bf16-v12"])
+        "bf16-qk200", "bf16-v136", "bf16-v12", "bf16-d256", "bf16-bshd-view-d256",
+        "bf16-qk256-v128", "bf16-qk192-v256"])
 def test_variant_from_dtype_shape_and_strides(make, want):
     q, k, v = make()
     assert flash_kernel._variant(q, k, v) == want
@@ -100,6 +105,20 @@ def _fake_launches(monkeypatch, fail=()):
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: SimpleNamespace(cuda_stream=0))
     return ran
+
+
+def test_head_dim_256_launches_the_cuda_core_kernel(monkeypatch):
+    """bf16 aligned inputs at head dim 256, past the tensor-core kernel's
+    buckets, launch the CUDA-core kernel (its host check would refuse them);
+    MLA's (192, 128) still launches the tensor-core kernel."""
+    ran = _fake_launches(monkeypatch)
+    ops.reset_launch_counts()
+    flash_kernel.flash_attention(*_bshd_views(4, 16, 1, 64, 256))
+    flash_kernel.flash_attention(*_mla(1, 4, 64, 256, 128))
+    flash_kernel.flash_attention(*_mla(1, 4, 64, 192, 128))
+    assert ran == ["scalar", "scalar", "wgmma"]
+    assert flash_kernel.launches_by_variant == {"wgmma": 1, "scalar": 2}
+    ops.reset_launch_counts()
 
 
 def test_launches_by_variant_sum_to_launches_and_reset(monkeypatch):

@@ -4,8 +4,11 @@ On the CPU the port's ``ops`` run the plain versions (``repro_torch.kernels.
 ref``); they are held against ``repro.kernels.ops`` (Pallas, interpret mode,
 as tests/test_kernels.py runs it) and ``repro.kernels.ref`` on the same numpy
 inputs, over tests/test_kernels.py's sweeps and tolerances.  The tests marked
-``gpu`` hold the CUDA/Triton kernels against the plain versions on the card.
+``gpu`` hold the CUDA kernels against the plain versions on the card.
 """
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -21,6 +24,7 @@ from repro_torch.kernels import dgc_topk as dgc_kernel  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
 from repro_torch.kernels import fused_adam as adam_kernel  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
 
 FLASH_SHAPES = [            # (B, H, KH, S, D), as tests/test_kernels.py
@@ -108,23 +112,72 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 
 
 @pytest.mark.parametrize("q_shape,k_shape,v_shape,dtype,match", [
-    ((1, 2, 8, 200), (1, 1, 8, 200), None, torch.float32, "q/k head dim 200"),
+    ((1, 2, 8, 264), (1, 1, 8, 264), None, torch.float32, "q/k head dim 264"),
     ((1, 3, 8, 16), (1, 2, 8, 16), None, torch.float32, "H % KH"),
     ((1, 2, 8, 16), (1, 1, 9, 16), None, torch.float32, "do not match"),
     ((1, 2, 8, 16), (1, 1, 8, 16), None, torch.float16, "dtypes"),
     ((1, 2, 8, 16), (1, 1, 8, 16), (1, 1, 9, 16), torch.float32, "bad shapes"),
-    ((1, 2, 8, 192), (1, 1, 8, 192), (1, 1, 8, 136), torch.float32,
-     "v head dim 136"),
+    ((1, 2, 8, 256), (1, 1, 8, 256), (1, 1, 8, 264), torch.float32,
+     "v head dim 264"),
 ])
 def test_flash_wrapper_rejects_bad_inputs(q_shape, k_shape, v_shape, dtype, match):
-    """q/k head dims past 192, v head dims past 128 and a v whose B/KH/S
-    disagree with k's are refused before any launch (192 with 128 is
-    MLA's, and legal)."""
+    """q/k head dims past 256, v head dims past 256 and a v whose B/KH/S
+    disagree with k's are refused before any launch (256 with 256 is
+    RecurrentGemma's, and legal)."""
     q = torch.zeros(q_shape, dtype=dtype)
     k = torch.zeros(k_shape, dtype=dtype)
     v = k if v_shape is None else torch.zeros(v_shape, dtype=dtype)
     with pytest.raises((ValueError, TypeError), match=match):
         flash_kernel.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("D,Dv", [(256, 256), (256, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_wrapper_takes_head_dim_256(D, Dv, dtype):
+    """Head dim 256 (q/k, and v of 256 or 128) passes every shape and dtype
+    check: CPU tensors get as far as the device check."""
+    q = torch.zeros(1, 16, 8, D, dtype=dtype)
+    k = torch.zeros(1, 1, 8, D, dtype=dtype)
+    v = torch.zeros(1, 1, 8, Dv, dtype=dtype)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        flash_kernel.flash_attention(q, k, v)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_head_dim_256_matches_jax(dtype, causal):
+    """recurrentgemma-9b's head dim (256) with one KV head: the port's
+    ``ops.flash_attention`` against the JAX package's, which pads D to a
+    multiple of 128 (none at 256)."""
+    B, H, KH, S, D = 1, 4, 1, 40, 256
+    rng = np.random.default_rng(7)
+    jq, tq = _both(rng.standard_normal((B, H, S, D), np.float32), dtype)
+    jk, tk = _both(rng.standard_normal((B, KH, S, D), np.float32), dtype)
+    jv, tv = _both(rng.standard_normal((B, KH, S, D), np.float32), dtype)
+    got = ops.flash_attention(tq, tk, tv, causal=causal)
+    assert got.dtype == tq.dtype and got.shape == tq.shape
+    np.testing.assert_allclose(
+        _f32(got), _f32(jax_ops.flash_attention(jq, jk, jv, causal=causal)),
+        atol=FLASH_ATOL[dtype])
+
+
+CSRC = Path(flash_kernel.__file__).resolve().parent.parent / "csrc"
+
+
+@pytest.mark.parametrize("source,limits", [
+    ("flash_attention.cu", (flash_kernel.MAX_D, flash_kernel.MAX_D_V)),
+    ("flash_attention_wgmma.cu", (flash_kernel.WGMMA_MAX_D, flash_kernel.WGMMA_MAX_D_V)),
+])
+def test_flash_wrapper_limits_match_the_kernels_host_checks(source, limits):
+    """The head-dim limits each kernel's C entry point refuses past are the
+    ones the wrapper admits to it: ``MAX_D``/``MAX_D_V`` for the CUDA-core
+    kernel (every input), ``WGMMA_MAX_D``/``WGMMA_MAX_D_V`` for the
+    tensor-core kernel (``_variant``)."""
+    text = (CSRC / source).read_text()
+    entry = text[text.index('extern "C"'):]
+    got = (int(re.search(r"\bD > (\d+)", entry)[1]),
+           int(re.search(r"\bDv > (\d+)", entry)[1]))
+    assert got == limits
 
 
 def test_flash_attention_accepts_reference_block_keywords():
@@ -307,6 +360,91 @@ def test_fused_adam_wrapper_rejects_bad_inputs(monkeypatch, case, match):
                                eps=1e-8, wd=0.1)
 
 
+def _strided(rows, cols, width, dtype=torch.bfloat16):
+    """``cols`` of each row of a (rows, width) tensor: rows ``width`` apart."""
+    return torch.empty(rows, width, dtype=dtype)[:, :cols]
+
+
+def _offset(shape, dtype=torch.bfloat16):
+    """A tensor one element past a 16-byte-aligned base."""
+    flat = torch.empty(int(np.prod(shape)) + 1, dtype=dtype)
+    assert flat.data_ptr() % 16 == 0
+    return flat[1:].view(shape)
+
+
+bf16 = torch.bfloat16
+Plan = rmsnorm_kernel.Plan
+
+
+@pytest.mark.parametrize("make,want", [
+    # 16-byte loads: 320 loads of 8 bf16 at 2560, 5 a lane of two warps
+    (lambda: (torch.empty(4096, 2560, dtype=bf16), torch.empty(2560, dtype=bf16)),
+     Plan(8, 5, 2, 4, 528)),
+    (lambda: (torch.empty(3, 5, 300), torch.empty(300)), Plan(4, 3, 1, 8, 2)),
+    (lambda: (_strided(2048, 512, 576), torch.empty(512, dtype=bf16)),
+     Plan(8, 2, 1, 8, 256)),
+    (lambda: (torch.empty(2048, 1536, dtype=bf16), torch.empty(1536)),
+     Plan(8, 3, 2, 4, 512)),
+    (lambda: (torch.empty(4, 1, 2048, dtype=bf16), torch.empty(2048, dtype=bf16)),
+     Plan(8, 2, 4, 2, 2)),
+    # one element a load: D, pointer or row stride off the 16-byte grain
+    (lambda: (torch.empty(1, 7, dtype=bf16), torch.empty(7, dtype=bf16)),
+     Plan(1, 1, 1, 8, 1)),
+    (lambda: (_offset((64, 2048)), torch.empty(2048, dtype=bf16)), Plan(1, 0, 8, 1, 64)),
+    (lambda: (_offset((8, 1024)), torch.empty(1024, dtype=bf16)), Plan(1, 4, 8, 1, 8)),
+    (lambda: (_strided(16, 512, 516), torch.empty(512, dtype=bf16)), Plan(1, 2, 8, 1, 16)),
+    (lambda: (torch.empty(16, 512, dtype=bf16), _offset((512,), torch.float32)),
+     Plan(1, 2, 8, 1, 16)),
+    # 2 loads a lane where a split leaves no lane idle; more warps a row past a
+    # warp's 5 loads a lane; chunks past eight warps'
+    (lambda: (torch.empty(4096, 5120, dtype=bf16), torch.empty(5120, dtype=bf16)),
+     Plan(8, 5, 4, 2, 528)),
+    (lambda: (torch.empty(16, 4096, dtype=bf16), torch.empty(4096, dtype=bf16)),
+     Plan(8, 2, 8, 1, 16)),
+    (lambda: (torch.empty(8192, 2048), torch.empty(2048)), Plan(4, 2, 8, 1, 528)),
+    (lambda: (torch.empty(8192, 2048, dtype=bf16), torch.empty(2048, dtype=bf16)),
+     Plan(8, 2, 4, 2, 528)),
+    (lambda: (torch.empty(8, 20000, dtype=bf16), torch.empty(20000, dtype=bf16)),
+     Plan(8, 0, 8, 1, 8)),
+], ids=["bf16-2560", "f32-300", "bf16-mla-kv-512-of-576", "bf16-1536-f32-w",
+        "bf16-decode", "bf16-7", "bf16-offset-2048", "bf16-offset-1024",
+        "bf16-stride-516", "bf16-w-offset", "bf16-5120", "bf16-4096", "f32-2048",
+        "bf16-2048", "bf16-20000"])
+def test_rmsnorm_plan_from_dtype_shape_pointers_and_strides(make, want):
+    """``_plan`` is a pure function of dtype, D, pointers and the row stride:
+    16-byte loads sized to D where all allow them, else one element a load;
+    the split of a row with no idle lane and the fewest loads a thread (2 to
+    5), else the fewest warps whose threads hold it in at most 5 loads, past
+    8 warps a loop in chunks; a grid of at most four blocks an SM (132
+    SMs)."""
+    x, w = make()
+    assert rmsnorm_kernel._plan(x, w) == want
+
+
+@pytest.mark.parametrize("case,exc,match", [
+    ("weight shape", ValueError, "weight"),
+    ("x dtype", TypeError, "dtype torch.float16"),
+    ("w dtype", TypeError, "weight dtype torch.float16"),
+    ("cpu", ValueError, "CUDA"),
+])
+def test_rmsnorm_wrapper_refuses_before_loading_the_library(monkeypatch, case, exc,
+                                                            match):
+    def no_build(name):
+        raise AssertionError(f"library {name} loaded")
+    monkeypatch.setattr(_build, "load", no_build)
+    rmsnorm_kernel._fn.cache_clear()
+    x, w = torch.zeros(3, 16), torch.ones(16)
+    if case == "weight shape":
+        w = torch.ones(15)
+    elif case == "x dtype":
+        x = x.half()
+    elif case == "w dtype":
+        w = w.half()
+    with pytest.raises(exc, match=match):
+        rmsnorm_kernel.rmsnorm(x, w)
+    assert rmsnorm_kernel.launches == 0
+
+
 # ---------------------------------------------------------------- on the card
 @pytest.fixture
 def cuda():
@@ -354,13 +492,25 @@ def test_flash_small_head_dims_on_gpu(cuda, D, S, causal, layout):
     assert (got.float() - want.float()).abs().max().item() <= FLASH_ATOL["bfloat16"]
 
 
+# the families' widths past the sweep (deepseek's q_norm, mamba2's two), and
+# MLA's kv_norm: 512 columns of rows 576 wide, read in place (width)
+RMS_WIDE = [((2048, 1536), 0), ((4096, 2560), 0), ((4096, 5120), 0), ((2048, 512), 576)]
+
+
+def _rms_input(gen, shape, width, td, cuda):
+    if not width:
+        return torch.randn(shape, generator=gen, device=cuda).to(td)
+    return torch.randn(*shape[:-1], width, generator=gen, device=cuda).to(td)[..., :shape[-1]]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", RMS_SHAPES + [(4, 512, 2048), (4, 1, 2048)])
+@pytest.mark.parametrize("shape,width", [(s, 0) for s in RMS_SHAPES
+                                         + [(4, 512, 2048), (4, 1, 2048)]] + RMS_WIDE)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rmsnorm_kernel_on_gpu(cuda, shape, dtype):
+def test_rmsnorm_kernel_on_gpu(cuda, shape, width, dtype):
     td = DTYPES[dtype][1]
     gen = torch.Generator(device=cuda).manual_seed(2)
-    x = torch.randn(shape, generator=gen, device=cuda).to(td)
+    x = _rms_input(gen, shape, width, td, cuda)
     w = torch.randn(shape[-1], generator=gen, device=cuda)
     before = rmsnorm_kernel.launches
     got = ops.rmsnorm(x, w)
@@ -428,14 +578,15 @@ def test_flash_attention_grad_on_gpu(cuda, B, H, KH, S, D, dtype, causal):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape", RMS_SHAPES + [(2, 4096, 2048)])
+@pytest.mark.parametrize("shape,width", [(s, 0) for s in RMS_SHAPES + [(2, 4096, 2048)]]
+                         + RMS_WIDE)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_rmsnorm_grad_on_gpu(cuda, shape, dtype):
+def test_rmsnorm_grad_on_gpu(cuda, shape, width, dtype):
     gen = torch.Generator(device=cuda).manual_seed(5)
-    x, dy = (torch.randn(shape, generator=gen, device=cuda).to(DTYPES[dtype][1])
-             for _ in range(2))
+    x = _rms_input(gen, shape, width, DTYPES[dtype][1], cuda)
+    dy = torch.randn(shape, generator=gen, device=cuda).to(DTYPES[dtype][1])
     w = torch.randn(shape[-1], generator=gen, device=cuda)
-    leaves = [x.clone().requires_grad_(), w.clone().requires_grad_()]
+    leaves = [x.detach().requires_grad_(), w.clone().requires_grad_()]   # x keeps its strides
     before = rmsnorm_kernel.launches
     got = torch.autograd.grad(ops.rmsnorm(*leaves), leaves, dy)
     torch.cuda.synchronize()

@@ -91,6 +91,16 @@ def test_no_source_imports_jax_or_the_jax_package():
             assert root not in ("jax", "jaxlib", "repro"), (path, mod)
 
 
+def test_no_source_imports_triton():
+    """Every kernel of the port is CUDA C++ built by nvcc: no module of the
+    package imports Triton."""
+    for path in sorted(PORT.rglob("*.py")):
+        for mod in _imports(path):
+            assert mod.split(".")[0] != "triton", (path, mod)
+    ast_imports = {mod for path in PORT.rglob("*.py") for mod in _imports(path)}
+    assert "torch" in ast_imports
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_smoke_config("tinyllama-1.1b")
