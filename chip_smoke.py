@@ -8,7 +8,10 @@
    once: flash attention's two, RMSNorm, fused_adam, dgc);
 3. kernels: each kernel against its plain PyTorch version on the card over the
    JAX package's kernel-test sweeps (``tests/test_kernels.py``) and the
-   main-path shapes; flash attention also over the tensor-core kernel's edges
+   main-path shapes; fused_adam also over the edges of its ring of bulk
+   copies (sizes around a tile and a full ring, tails of 1 to 3 entries,
+   each vector in turn off 16-byte alignment, guard entries unwritten);
+   flash attention also over the tensor-core kernel's edges
    (ragged S, group 8, D 80 and 128, (B, S, H, D) tensors as transposed
    views) and the inputs that must take the CUDA-core kernel, printing which
    kernel each case took; the gradients through the flash-attention and RMSNorm
@@ -61,7 +64,10 @@
    leaves the attention backward and the update alone; the bfloat16 step
    (the implementation) measured interleaved float32 / bfloat16 / float32
    and traced; a per-layer table of device time (float32 measured,
-   AMP-predicted, bfloat16 measured); both speedups above 1 and the launch
+   AMP-predicted, bfloat16 measured) and the bfloat16 step's update by
+   operation from its capture (the flat copies around fused_adam, the
+   gradient norm and clip, the kernel, the cast back; printed, not gated);
+   both speedups above 1 and the launch
    counts exact (per step 22 flash, all on ``scalar`` in float32 and on
    ``wgmma`` in bfloat16, 45 RMSNorm, 1 fused_adam); the prediction errors
    printed, not gated (the float32 trace's launch-queue waits are
@@ -259,6 +265,7 @@ from repro_torch.faults import (FaultEvent, FaultScenario,  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import cost as kernel_cost  # noqa: E402
 from repro_torch.kernels import flash_attention as flash_kernel  # noqa: E402
+from repro_torch.kernels import fused_adam as adam_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.launch import perf_report  # noqa: E402
 from repro_torch.models import (active_params, build_model,  # noqa: E402
@@ -317,7 +324,14 @@ RMS_SWEEP = [(4, 64), (3, 5, 300), (16, 1024), (1, 7)]
 # (one element a load); and each width again with x one element past an
 # aligned base (one element a load, in chunks past 1280 columns)
 RMS_WIDE = [(64, 1536), (64, 2560), (64, 5120), (16, 4096), (8, 20000), (3, 2049)]
-ADAM_SWEEP = [100, 1024, 5000, 1 << 14]
+# fused_adam: the JAX package's sizes, and the ring's edges: no entry, less
+# than one 16-byte chunk, a chunk and a tail, a tile and one entry either
+# side (and, added in adam_dgc_phase, a full ring for every block of the
+# grid plus a tail of 3); each with all four vectors 16-byte aligned and
+# with one of them an entry off (the plain loop)
+ADAM_SWEEP = [100, 1024, 5000, 1 << 14, 0, 1, 3, 4, 5, adam_kernel.TILE - 1,
+              adam_kernel.TILE, adam_kernel.TILE + 1]
+ADAM_OFFSETS = [(0, 0, 0, 0), (1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 1, 0), (0, 0, 0, 1)]
 DGC_SWEEP = [((100,), 0.1), ((123, 45), 0.01), ((4096,), 0.001)]
 FLASH_ATOL = {torch.float32: 2e-3, torch.bfloat16: 3e-2}
 RMS_ATOL = {torch.float32: 1e-5, torch.bfloat16: 5e-2}
@@ -1079,16 +1093,14 @@ def adam_dgc_phase(n_params: int) -> list:
     gen = torch.Generator(device=DEV).manual_seed(1)
     bad = []
     worst = 0.0
-    for n in ADAM_SWEEP:
-        p, g, m, v = _adam_inputs(gen, n)
-        want = ref.fused_adam_ref(p, g, m, v, **ADAM_KW)
-        got = ops.fused_adam(p.clone(), g, m.clone(), v.clone(), **ADAM_KW)
-        for name, a, b, atol in zip("pmv", got, want, ADAM_ATOL):
-            err = max_err(a, b)
+    per_sm = adam_kernel.blocks_per_sm()
+    blocks = per_sm * torch.cuda.get_device_properties(0).multi_processor_count
+    sweep = ADAM_SWEEP + [adam_kernel.STAGES * adam_kernel.TILE * blocks + 3]
+    for n in sweep:
+        for offsets in ADAM_OFFSETS:
+            why, err = _adam_case(gen, n, offsets)
+            bad += why
             worst = max(worst, err)
-            if not err <= atol:
-                bad.append(f"fused_adam {name} n={n}: {err}")
-        del want, got
     sync()
     adam = {"name": "fused_adam", "route": "cuda",
             "source": "src/repro_torch/csrc/fused_adam.cu",
@@ -1103,8 +1115,11 @@ def adam_dgc_phase(n_params: int) -> list:
             dworst = max(dworst, err)
             bad += [f"dgc {shape} {dt}: {why}"] if why else []
     sync()
-    print(f"kernels: fused_adam largest abs error {worst:.3g} over n={ADAM_SWEEP} and "
-          f"{n_params} (atol p 1e-5, m/v 1e-6); dgc_mask largest abs error "
+    print(f"kernels: fused_adam ({per_sm} blocks an SM, {blocks} in all, tiles of "
+          f"{adam_kernel.TILE} entries, {adam_kernel.STAGES} stages) largest abs error "
+          f"{worst:.3g} over n={sweep}, each aligned and with p, g, m or v an entry "
+          f"off (nothing written past a vector), and {n_params} (atol p 1e-5, m/v "
+          f"1e-6); dgc_mask largest abs error "
           f"{dworst} over {DGC_SWEEP} in f32 and bf16 (exact)")
     if bad:
         fail("kernel disagrees with its plain version: " + "; ".join(bad))
@@ -1114,6 +1129,31 @@ def adam_dgc_phase(n_params: int) -> list:
 def _adam_inputs(gen, n):
     p, g = randn(gen, n), randn(gen, n)
     return p, g, randn(gen, n) * 0.1, randn(gen, n).abs() * 0.01
+
+
+def _adam_case(gen, n: int, offsets) -> tuple:
+    """fused_adam on ``n`` entries, each vector ``offsets[i]`` entries past a
+    16-byte-aligned base inside a buffer with 8 guard entries either side,
+    against the plain version: (what failed, the largest error)."""
+    pad, bad = 8, []
+    bufs, vecs = [], []
+    for x, off in zip(_adam_inputs(gen, n), offsets):
+        buf = torch.full((n + 2 * pad,), 7.0, device=DEV)
+        buf[pad + off:pad + off + n] = x
+        bufs.append(buf)
+        vecs.append(buf[pad + off:pad + off + n])
+    want = ref.fused_adam_ref(*(x.clone() for x in vecs), **ADAM_KW)
+    got = ops.fused_adam(*vecs, **ADAM_KW)
+    worst = 0.0
+    for name, a, b, atol in zip("pmv", got, want, ADAM_ATOL):
+        err = max_err(a, b) if n else 0.0
+        worst = max(worst, err)
+        if not err <= atol:
+            bad.append(f"fused_adam {name} n={n} offsets {offsets}: {err}")
+    for name, buf, off in zip("pgmv", bufs, offsets):
+        if not bool((buf[:pad + off] == 7.0).all() and (buf[pad + off + n:] == 7.0).all()):
+            bad.append(f"fused_adam n={n} offsets {offsets}: wrote past {name}")
+    return bad, worst
 
 
 def _adam_entry(gen, n: int) -> dict:
@@ -1861,6 +1901,49 @@ def _ms_by_row(graph) -> dict:
     return {row: sum(t.duration for t in dev if pick(t)) * 1e3 for row, pick in AMP_ROWS}
 
 
+# The fused update's operations (optim/adamw.py, AdamW.apply_fused) in the
+# order they run, each with the bytes an entry it moves with bf16 params and
+# gradients (an estimate from the code: a bf16 read and write for each cat,
+# a bf16 read and an f32 write for each .float(), g read for the square,
+# the square written and read by the sum, g read and written by mul_, the
+# kernel's 28, an f32 read and a bf16 write back); "scalars" are the 0-dim
+# steps between them (clip scale, lr, bias corrections)
+UPDATE_OPS = [("cat p, g", 8), (".float() p, g", 12), ("norm: square, sum, sqrt", 12),
+              ("clip: mul_", 8), ("kernel", 28), ("slice, cast to bf16", 6),
+              ("scalars", 0)]
+
+
+def _update_by_op(graph) -> dict:
+    """Device ms, tasks and bytes an entry of each of UPDATE_OPS in a
+    captured fused step, from its update-phase device tasks: by the launching
+    operator before the kernel (a 0-dim operator of the same name, such as
+    the step count's ``.float()``, counts with its row: a few microseconds),
+    the kernel by its name, and every task after it as the cast back."""
+    out = {row: {"ms": 0.0, "tasks": 0, "bytes_per_entry": b} for row, b in UPDATE_OPS}
+    after = False
+    for t in graph.lane_tasks(DEVICE_STREAM):
+        if t.phase != "update":
+            continue
+        op = t.attrs.get("op") or ""
+        if "fused_adam" in t.name:
+            row, after = "kernel", True
+        elif after:
+            row = "slice, cast to bf16"
+        elif op == "aten::cat":
+            row = "cat p, g"
+        elif op in ("aten::copy_", "aten::_to_copy", "aten::to"):
+            row = ".float() p, g"
+        elif op in ("aten::pow", "aten::square", "aten::sum", "aten::sqrt"):
+            row = "norm: square, sum, sqrt"
+        elif op == "aten::mul_":
+            row = "clip: mul_"
+        else:
+            row = "scalars"
+        out[row]["ms"] += t.duration * 1e3
+        out[row]["tasks"] += 1
+    return out
+
+
 def _amp_except(graph, keep) -> float:
     """Simulated ms of ``graph`` after paper Algorithm 3 (matrix products
     3x, every other device task 2x, as the ``amp`` what-if classes them) on
@@ -2023,6 +2106,12 @@ def amp_phase(cfg, name: str, kernels: list, traces: Path, handoff: dict) -> dic
     for kern in kernels:
         kern.setdefault("launches_by_path", {})["amp"] = counts[kern["name"]]
 
+    update = _update_by_op(b16.graph)
+    total = sum(r["ms"] for r in update.values())
+    print(f"amp: the bfloat16 fused step's update, {total:.3f} device ms by operation "
+          f"(the same capture; bytes an entry estimated from optim/adamw.py): " + "; ".join(
+              f"{row} {r['ms']:.3f} ms over {r['tasks']} tasks ({r['bytes_per_entry']} B)"
+              for row, r in update.items()))
     rows32, rows_pred, rows16 = (_ms_by_row(g) for g in (g32, tf_amp.graph, b16.graph))
     print("amp: device ms per step by layer: float32 measured / AMP-predicted / "
           "bfloat16 measured")
@@ -2097,6 +2186,7 @@ def amp_phase(cfg, name: str, kernels: list, traces: Path, handoff: dict) -> dic
                           "bf16": sum(rows16.values())},
             "device_ms_by_layer": {"fp32": rows32, "amp_predicted": rows_pred,
                                    "bf16": rows16},
+            "bf16_update_by_op": update,
             "peak_gb": peak_gb, "trace_s": trace_s,
             "analytical": {"bf16_simulated_ms": meta16_ms,
                            "ratio_to_measured_bf16": meta16_ms / meas["bf16"],

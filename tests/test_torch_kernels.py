@@ -360,6 +360,38 @@ def test_fused_adam_wrapper_rejects_bad_inputs(monkeypatch, case, match):
                                eps=1e-8, wd=0.1)
 
 
+TILE, STAGES = adam_kernel.TILE, adam_kernel.STAGES
+# the sizes at the ring's edges: none, under one 16-byte chunk, one chunk and
+# a tail, a tile and one entry either side, and every block of a grid of two
+# blocks on each of the H100's 132 SMs taking a full ring, plus a tail of 3
+ADAM_EDGES = [0, 1, 3, 4, 5, TILE - 1, TILE, TILE + 1, STAGES * TILE * 2 * 132 + 3]
+ADAM_OFFSETS = [(0, 0, 0, 0), (1, 0, 0, 0), (0, 1, 0, 0), (0, 0, 1, 0), (0, 0, 0, 1)]
+
+
+@pytest.mark.parametrize("n", ADAM_EDGES)
+@pytest.mark.parametrize("offsets", ADAM_OFFSETS,
+                         ids=["aligned", "p-off", "g-off", "m-off", "v-off"])
+def test_fused_adam_plan_splits_body_and_tail(n, offsets):
+    """``_plan``: with all four base pointers 16-byte aligned, the body is all
+    but the last ``n % 4`` entries (bulk copies move 16-byte multiples) and
+    those are the tail; with any pointer one f32 entry off, the tail is all of
+    it."""
+    ptrs = [4096 * (i + 1) + 4 * off for i, off in enumerate(offsets)]
+    plan = adam_kernel._plan(n, ptrs)
+    aligned = not any(offsets)
+    assert plan == adam_kernel.Plan(aligned, n - n % 4 if aligned else 0,
+                                    n % 4 if aligned else n)
+    assert plan.body % 4 == 0 and plan.body + plan.tail == n
+
+
+def test_fused_adam_constants_match_the_kernel_source():
+    """The wrapper's tile and stages are the kernel's."""
+    src = (Path(_build.CSRC) / "fused_adam.cu").read_text()
+    got = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+           for k in ("kTile", "kStages")}
+    assert got == {"kTile": adam_kernel.TILE, "kStages": adam_kernel.STAGES}
+
+
 def _strided(rows, cols, width, dtype=torch.bfloat16):
     """``cols`` of each row of a (rows, width) tensor: rows ``width`` apart."""
     return torch.empty(rows, width, dtype=dtype)[:, :cols]
@@ -521,22 +553,32 @@ def test_rmsnorm_kernel_on_gpu(cuda, shape, width, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n", ADAM_NS + [(1 << 20) + 3])
-@pytest.mark.parametrize("offset", [0, 1])
-def test_fused_adam_kernel_on_gpu(cuda, n, offset):
-    """The kernel against the plain version, on vectors 16-byte aligned
-    (offset 0) and not (offset 1: the scalar loop); updated in place."""
-    arrs = [torch.from_numpy(np.concatenate([np.zeros(offset, np.float32), a]))
-            .to(cuda)[offset:] for a in _adam_inputs(n)]
-    want = ref.fused_adam_ref(*arrs, **ADAM_KW)
-    p, m, v = (arrs[i].clone() for i in (0, 2, 3))
+@pytest.mark.parametrize("n", ADAM_NS + [(1 << 20) + 3] + ADAM_EDGES)
+@pytest.mark.parametrize("offsets", [(0, 0, 0, 0), (1, 1, 1, 1)] + ADAM_OFFSETS[1:],
+                         ids=["aligned", "all-off", "p-off", "g-off", "m-off", "v-off"])
+def test_fused_adam_kernel_on_gpu(cuda, n, offsets):
+    """The kernel against the plain version, on vectors 16-byte aligned (the
+    ring of bulk copies and a tail of n % 4) and with one or all of them an
+    entry off (the plain loop); updated in place, and nothing written past
+    the vectors."""
+    pad = 8
+    bufs, arrs = [], []
+    for a, off in zip(_adam_inputs(n), offsets):
+        buf = torch.full((n + 2 * pad,), 7.0, device=cuda)
+        buf[pad + off:pad + off + n] = torch.from_numpy(a).to(cuda)
+        bufs.append(buf)
+        arrs.append(buf[pad + off:pad + off + n])
+    want = ref.fused_adam_ref(*(t.clone() for t in arrs), **ADAM_KW)
+    p, g, m, v = arrs
     before = adam_kernel.launches
-    got = ops.fused_adam(p, arrs[1], m, v, **ADAM_KW)
+    got = ops.fused_adam(p, g, m, v, **ADAM_KW)
     torch.cuda.synchronize()
     assert adam_kernel.launches == before + 1
     assert got[0] is p and got[1] is m and got[2] is v
     for a, b, atol in zip(got, want, ADAM_ATOL):
-        assert (a - b).abs().max().item() <= atol
+        assert n == 0 or (a - b).abs().max().item() <= atol
+    for buf, off in zip(bufs, offsets):
+        assert bool((buf[:pad + off] == 7.0).all() and (buf[pad + off + n:] == 7.0).all())
 
 
 @pytest.mark.gpu
