@@ -31,7 +31,7 @@
    shapes (phase 11's), and RMSNorm at mamba2-2.7b's 2560 and 5120 columns
    (phase 13's); flash attention at head dim 256 (recurrentgemma-9b's, on
    the CUDA-core kernel) over its sweep and gradients, and timed at that
-   model's serve shape beside SDPA;
+   model's serve shape beside SDPA; and its local window (phase 14's);
 4. serve: tinyllama-1.1b at full width in bf16 from a seeded generator, four
    requests of 128-512 prompt tokens and 32 new tokens each through
    ``ServeEngine.generate``, with the kernels' launch counts read around that
@@ -191,7 +191,24 @@
    graph; a device-ms table by layer and the host lane's share;
    ``perf_report.trace_cell`` of all 64 layers and of the trained depth on
    meta tensors, the latter against the measured step (printed);
-14. serving: the serving simulator (``repro_torch.serving``) fitted to the
+14. hybrid: the hybrid family, recurrentgemma-9b (12 groups of two RG-LRU
+   sub-blocks and a local-attention one, window 2048, and 2 recurrent tail
+   layers), after every earlier tensor is freed (gated).  Served at full
+   width and depth in bf16 (20.9 GB) through ``_serve``: flash one a group
+   per prefill (12), all on the CUDA-core kernel with the window, 77
+   RMSNorm per forward.  One request of 2560 tokens, past the window, at
+   max_seq 4096 and 8192: the engine's cache bytes and tokens gated equal.
+   At 4 layers in float32 (attention projections rescaled): prefill and
+   decode logits through the kernels against their plain versions, the
+   engine's greedy tokens on both equal, decode past the window against a
+   fresh prefill within 1e-3.  Trained at 3 layers (one group, 1 x 4096,
+   ``AdamW(fused=True)``, 4 steps on one batch timed by CUDA events): the
+   loss falling, launches exact per step, the peak memory printed.  Its
+   windowed flash row (1 x 4096, 16 query heads and one KV head of 256,
+   window 2048; a sweep of windows in f32 and bf16, causal or not, and
+   gradients, first) is checked and timed right after the ssm rows, beside
+   its plain version and SDPA with the same boolean mask;
+15. serving: the serving simulator (``repro_torch.serving``) fitted to the
    engine and checked against it at full width, last, so that no profiled
    phase follows its launches.  ``measure_serving_costs`` of llama3.2-1b
    once, and of tinyllama-1.1b in each of ``SERVING_ROUNDS`` rounds, at 4
@@ -205,11 +222,12 @@
    error within 16%; both speedups above 1, the baseline measured in every
    third round); the serve phase's mixed prompts predicted and measured
    (printed); launch counts read around the whole phase, exact;
-15. the card's name and power limit again (the limit the run ended under),
+16. the card's name and power limit again (the limit the run ended under),
    the ``whatif``, ``amp``, ``traceio``, ``faults``, ``serving``, ``launch``,
-   ``moe``, ``deepseek``, ``ssm``, ``phase_s`` (each phase's seconds, also printed as
-   it ends) and ``kernels`` JSON lines (each kernel's ``launches`` from the
-   launch phase's measured steps, DGC's from its own path), then the last
+   ``moe``, ``deepseek``, ``ssm``, ``hybrid``, ``phase_s`` (each phase's seconds,
+   also printed as it ends) and ``kernels`` JSON lines (each kernel's
+   ``launches`` from the launch phase's measured steps, DGC's from its own
+   path, the windowed flash row's from the hybrid phase), then the last
    line ``{"ok": true, "device": {...}}``.
 
 Any failed check exits non-zero before the last line.  Without CUDA, or
@@ -269,7 +287,7 @@ from repro_torch.kernels import fused_adam as adam_kernel  # noqa: E402
 from repro_torch.kernels import rmsnorm as rmsnorm_kernel  # noqa: E402
 from repro_torch.launch import perf_report  # noqa: E402
 from repro_torch.models import (active_params, build_model,  # noqa: E402
-                                cache_seq_axes, count_params, init_cache, init_params,
+                                cache_axes, count_params, init_cache, init_params,
                                 loss_and_grads, loss_fn, make_train_step)
 from repro_torch.models import moe as moe_layer  # noqa: E402
 from repro_torch.optim import AdamW, opt_state  # noqa: E402
@@ -436,6 +454,28 @@ SSM_PEAK_GB = 70.0
 SSM_CONTEXTS = (512, 8192)
 SSM_CONTEXT_NEW = 8
 SSM_DECODE_RTOL = 1e-4
+# hybrid phase: recurrentgemma-9b (12 groups of two RG-LRU sub-blocks and a
+# local-attention one, window 2048, and 2 recurrent tail layers; 20.9 GB of
+# bf16) served at full width and depth; one request of HYBRID_PAST prompt
+# tokens, past the window, at each max_seq of HYBRID_CACHE_SEQS (the
+# engine's cache bytes and tokens gated equal); the float32 paths at
+# HYBRID_PATH_LAYERS layers (a group and a tail layer; decode
+# against a fresh prefill past the window within HYBRID_DECODE_RTOL: f32
+# sums in another order through 4 layers); trained at HYBRID_TRAIN_LAYERS
+# layers (one group), HYBRID_TRAIN_STEPS fused-AdamW steps on one batch of
+# 1 x TRAIN_SEQ; the phase's budget HYBRID_BUDGET_S (printed)
+HYBRID_ARCH = "recurrentgemma-9b"
+HYBRID_PAST, HYBRID_CACHE_SEQS = 2560, (4096, 8192)
+HYBRID_PATH_LAYERS, HYBRID_TRAIN_LAYERS, HYBRID_TRAIN_STEPS = 4, 3, 4
+HYBRID_DECODE_RTOL = 1e-3
+HYBRID_BUDGET_S = 90.0
+# the local window on the CUDA-core kernel (B, H, KH, S, D, window), f32 and
+# bf16, causal and not: the smoke config's 16 at window 8, head dims 64 to
+# 256 with windows of one key, inside S and past it; the gradients through
+# FlashAttentionFn (the windowed plain backward) at FLASH_WINDOW_GRAD
+FLASH_WINDOW = [(2, 4, 1, 37, 16, 8), (1, 16, 1, 300, 256, 64), (1, 4, 2, 130, 64, 1),
+                (1, 8, 1, 200, 128, 256), (1, 16, 1, 1024, 256, 300)]
+FLASH_WINDOW_GRAD = [(2, 4, 1, 37, 16, 8), (1, 4, 1, 256, 256, 64)]
 # device timing: a torch.profiler session with no device record is run again,
 # up to PROFILE_TRIES sessions; a kernel row's profiler time must lie within
 # PROFILE_TOL of its CUDA-event time, less PROFILE_GAP_MS per device operation
@@ -3193,22 +3233,32 @@ def _norms(cfg) -> int:
 
 
 def _flashes(cfg) -> int:
-    """Flash attention launches per forward pass: one a layer, none in the
-    attention-free ssm family."""
+    """Flash attention launches per forward pass: one a layer, one a group
+    of three in the hybrid family, none in the attention-free ssm family."""
+    if cfg.family == "hybrid":
+        return cfg.n_layers // 3
     return 0 if cfg.family == "ssm" else cfg.n_layers
+
+
+def _flash_kernel_of(cfg) -> str:
+    """The flash kernel a bf16 forward of the config launches: the
+    CUDA-core kernel for a local window, else the tensor-core kernel."""
+    return "scalar" if cfg.window else "wgmma"
 
 
 def _serve(cfg, reqs, tag: str) -> tuple:
     """``ServeEngine.generate`` at full width (and the config's depth):
-    launches exact (one flash per layer per prefill, all on the tensor-core
-    kernel; ``_norms`` RMSNorm per forward), then the device time of one
-    prefill and one decode step (torch.profiler, few calls: a profiled call
-    of a deep model is thousands of records) against the decode step's read
-    bound: every weight but the embedding table (the reference's moe decode
-    runs every expert at capacity 1), and the cache of the step's position
-    read once, or, where it holds no sequence axis (the ssm family's conv
-    window and state), read and written whole.  Lines are printed as
-    ``tag:``.  (JSON, launches, the params: the caller frees them)."""
+    launches exact (``_flashes`` flash per prefill, all on the tensor-core
+    kernel, or on the CUDA-core kernel with a local window; ``_norms``
+    RMSNorm per forward), then the device time of one prefill and one
+    decode step (torch.profiler, few calls: a profiled call of a deep model
+    is thousands of records) against the decode step's read bound: every
+    weight but the embedding table (the reference's moe decode runs every
+    expert at capacity 1), and the cache of the step's position: a leaf
+    with a sequence axis read once, a leaf of constant size (the ssm
+    family's conv window and state, the hybrid family's conv window and
+    RG-LRU state) read and written whole.  Lines are printed as ``tag:``.
+    (JSON, launches, the params: the caller frees them)."""
     L = cfg.n_layers
     t0 = time.perf_counter()
     params = init_params(cfg, seed=0, device=DEV)
@@ -3228,7 +3278,7 @@ def _serve(cfg, reqs, tag: str) -> tuple:
     total = sum(len(r.tokens) for r in results)
     want = {"flash_attention": _flashes(cfg), "rmsnorm": _norms(cfg) * (1 + steps),
             "fused_adam": 0, "dgc_mask": 0}
-    want_variant = {"wgmma": _flashes(cfg), "scalar": 0}
+    want_variant = {"wgmma": 0, "scalar": 0, _flash_kernel_of(cfg): _flashes(cfg)}
     tok_s = total / (st["prefill_s"] + st["decode_s"])
     print(f"{tag}: serve {cfg.name}, {L} layers, full width, bf16 (initialised in "
           f"{init_s:.2f}s): {len(reqs)} requests, prompts {PROMPT_LENS} (left-padded "
@@ -3253,8 +3303,8 @@ def _serve(cfg, reqs, tag: str) -> tuple:
         dec = device_profile(lambda: model.decode(params, cache, toks[:, :1], plen), 3, 2)
     weight_b = sum(t.numel() * t.element_size() for k, t in _named(params).items()
                    if k != "embed.table")
-    constant = all(ax is None for ax in cache_seq_axes(cfg).values())
-    cache_b = (2 if constant else 1) * _cache_bytes(cache)
+    seq_b, const_b = _cache_split(cfg, cache)
+    cache_b = seq_b + 2 * const_b
     bound_ms = (weight_b + cache_b) / PEAK_BYTES * 1e3
     host_pre, host_dec = st["prefill_s"] * 1e3, st["decode_s"] / steps * 1e3
     print(f"{tag}: serve device time per prefill {pre.ms:.3f} ms over {pre.ops} ops "
@@ -3263,9 +3313,9 @@ def _serve(cfg, reqs, tag: str) -> tuple:
           f"launches (busy {dec.ms / host_dec:.1%} of {host_dec:.3f} ms; the host queues "
           f"{dec.host_ms:.3f} ms a step under the profiler); the decode step's read "
           f"bound {bound_ms:.3f} ms ({weight_b / 1e9:.4f} GB of weights but the embedding "
-          f"table + {cache_b / 1e6:.3f} MB of cache, "
-          + ("read and written" if constant else f"{plen + 1} positions read")
-          + f", at 3.35e12 B/s): device {dec.ms / bound_ms:.2f}x, host "
+          f"table + {cache_b / 1e6:.3f} MB of cache: {seq_b / 1e6:.3f} MB of "
+          f"{plen + 1} positions read, {const_b / 1e6:.3f} MB of constant size read "
+          f"and written, at 3.35e12 B/s): device {dec.ms / bound_ms:.2f}x, host "
           f"{host_dec / bound_ms:.2f}x it; logits finite {finite} (need True)")
     print(f"{tag}: serve largest device ms per decode step by op: "
           + "; ".join(f"{nm} {t:.3f}" for t, nm in dec.top))
@@ -3291,8 +3341,9 @@ def _plain_kernels():
     versions (``kernels/ref.py``) while the block runs: the model's plain
     path on CUDA tensors, which launches no kernel."""
     saved = ops.flash_attention, ops.rmsnorm
-    ops.flash_attention = (lambda q, k, v, causal=True, **_:
-                           ref.flash_attention_ref(q, k, v, causal=causal))
+    ops.flash_attention = (lambda q, k, v, causal=True, window=None, **_:
+                           ref.flash_attention_ref(q, k, v, causal=causal,
+                                                   window=window or 0))
     ops.rmsnorm = ref.rmsnorm_ref
     try:
         yield
@@ -3868,7 +3919,19 @@ def ssm_phase(name: str, kernels: list, rows: list) -> dict:
 
 
 def _cache_bytes(cache) -> int:
-    return sum(t.numel() * t.element_size() for layer in cache for t in layer.values())
+    return sum(t.numel() * t.element_size() for entry in cache
+               for t in _named(entry).values())
+
+
+def _cache_split(cfg, cache) -> tuple:
+    """(bytes of the leaves with a sequence axis, bytes of the leaves of
+    constant size) of a decode cache, by ``cache_axes``."""
+    split = [0, 0]
+    for entry, axes in zip(cache, cache_axes(cfg)):
+        ax = _named(axes)
+        for k, t in _named(entry).items():
+            split[ax[k] is None] += t.numel() * t.element_size()
+    return tuple(split)
 
 
 def _ssm_contexts(cfg, params, rng) -> dict:
@@ -4069,6 +4132,372 @@ def _ssm_train(cfg) -> tuple:
     return out, counts
 
 
+def hybrid_kernel_phase() -> dict:
+    """Flash attention with recurrentgemma-9b's local window at its training
+    shape (1 x TRAIN_SEQ tokens, 16 query heads and one KV head of 256,
+    window 2048) as bf16 (B, S, H, D) views, causal: it must launch the
+    CUDA-core kernel (the tensor-core kernel has no window); checked
+    against ``flash_attention_ref(window=)``, then timed beside its plain
+    version and SDPA with the same boolean mask (causal and windowed: the
+    library call) and bounded by the pairs the window keeps.  Run early,
+    beside the kernel phase, as ``ssm_kernel_phase``; the hybrid phase
+    gives it its launches."""
+    cfg = get_config(HYBRID_ARCH)
+    B, S, H, KH, D, W = 1, TRAIN_SEQ, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.window
+    bf = torch.bfloat16
+    gen = torch.Generator(device=DEV).manual_seed(5)
+    _window_sweep(gen)
+    q, k, v = (randn(gen, B, S, h, D, dtype=bf).transpose(1, 2) for h in (H, KH, KH))
+    pos = torch.arange(S, device=DEV)
+    mask = (pos[None, :] <= pos[:, None]) & (pos[:, None] - pos[None, :] < W)
+    out, variant = _counted_variant(lambda: ops.flash_attention(q, k, v, window=W))
+    want = ref.flash_attention_ref(q, k, v, window=W)
+    err = max_err(out, want)
+    lib_err = max_err(F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                     enable_gqa=True), want)
+    unwindowed = max_err(out, ref.flash_attention_ref(q, k, v))
+    print(f"kernels: hybrid flash at q {tuple(q.shape)} window {W}: max abs err "
+          f"{err:.4g} against flash_attention_ref(window={W}) on {variant!r} (need <= "
+          f"{FLASH_ATOL[bf]}, 'scalar'); SDPA with the mask {lib_err:.4g}; the same "
+          f"output against attention with no window {unwindowed:.4g} (need > "
+          f"{FLASH_ATOL[bf]}: the window masks)")
+    if not (err <= FLASH_ATOL[bf] and variant == "scalar" and unwindowed > FLASH_ATOL[bf]):
+        fail(f"windowed flash at {tuple(q.shape)}: {err} on {variant}, {unwindowed} "
+             "from attention with no window")
+    del out, want
+    row = {"name": "flash_attention", "route": "cuda",
+           "source": "src/repro_torch/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:31",
+           "max_abs_err": err, "variant": variant, "window": W,
+           **timings(f"flash_attention q {tuple(q.shape)} window {W}",
+                     lambda: ops.flash_attention(q, k, v, window=W),
+                     lambda: ref.flash_attention_ref(q, k, v, window=W),
+                     lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                            enable_gqa=True)),
+           **bound(*kernel_cost.flash_attention(B, H, KH, S, D, causal=True, window=W,
+                                                itemsize=2)),
+           "library_call": "F.scaled_dot_product_attention(q, k, v, attn_mask=causal "
+                           "and window mask, enable_gqa=True)",
+           "sdpa_max_abs_err": lib_err,
+           "shape": f"q {tuple(q.shape)} k/v {tuple(k.shape)} bf16 causal window {W}"}
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["ratio_to_library"] = row["ms"] / row["library_ms"]
+    print(f"kernels: hybrid flash at {row['shape']}: CUDA-core kernel {row['ms']:.5f} ms "
+          f"device ({row['share_of_bound']:.1%} of its {row['bound_ms']:.5f} ms bound, by "
+          f"{row['bound_by']}, the window's pairs only), SDPA with the mask "
+          f"{row['library_ms']:.5f} ms (ratio {row['ratio_to_library']:.3f}), plain "
+          f"{row['plain_ms']:.4f} ms")
+    del q, k, v, mask
+    torch.cuda.empty_cache()
+    return row
+
+
+def _window_sweep(gen) -> None:
+    """The windowed CUDA-core kernel against ``flash_attention_ref(window=)``
+    over FLASH_WINDOW (f32 and bf16, causal and not, (B, S, H, D) views;
+    each case must launch "scalar"), and the gradients through
+    FlashAttentionFn against autograd of the plain version over
+    FLASH_WINDOW_GRAD (GRAD_ATOL plus GRAD_RTOL, as ``grad_phase``)."""
+    worst, bad = {"forward": 0.0, "gradients": 0.0}, []
+    for (B, H, KH, S, D, W), dt, causal in [(c, dt, causal) for c in FLASH_WINDOW
+                                            for dt in (torch.float32, torch.bfloat16)
+                                            for causal in (True, False)]:
+        q, k, v = _flash_inputs(gen, B, H, KH, S, D, dt, "bshd")
+        out, variant = _counted_variant(
+            lambda: ops.flash_attention(q, k, v, causal=causal, window=W))
+        err = max_err(out, ref.flash_attention_ref(q, k, v, causal=causal, window=W))
+        worst["forward"] = max(worst["forward"], err)
+        if not (err <= FLASH_ATOL[dt] and variant == "scalar"):
+            bad.append(f"{(B, H, KH, S, D)} window {W} {dt} causal={causal}: {err} on "
+                       f"{variant}")
+    for (B, H, KH, S, D, W), dt, causal in [(c, dt, causal) for c in FLASH_WINDOW_GRAD
+                                            for dt in (torch.float32, torch.bfloat16)
+                                            for causal in (True, False)]:
+        q, k, v, do = (randn(gen, *s, dtype=dt) for s in
+                       ((B, H, S, D), (B, KH, S, D), (B, KH, S, D), (B, H, S, D)))
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        got = torch.autograd.grad(ops.flash_attention(*leaves, causal=causal, window=W),
+                                  leaves, do)
+        want = _autograd(lambda *a: ref.flash_attention_ref(*a, causal=causal, window=W),
+                         (q, k, v), do)
+        for nm, a, b in zip(("dq", "dk", "dv"), got, want):
+            worst["gradients"] = max(worst["gradients"], max_err(a, b))
+            if not (_grad_close(a, b, dt) and a.dtype == b.dtype):
+                bad.append(f"{nm} {(B, H, KH, S, D)} window {W} {dt} causal={causal}: "
+                           f"{max_err(a, b)}")
+    sync()
+    print(f"kernels: flash with a local window over {len(FLASH_WINDOW)} shapes x f32/bf16 "
+          f"x causal or not, all on 'scalar', and its gradients over "
+          f"{len(FLASH_WINDOW_GRAD)}: largest abs errors {worst} (atol 2e-3 f32 / 3e-2 "
+          f"bf16; gradients 5e-3 / 5e-2 plus 2^-7 |reference| in bf16)")
+    if bad:
+        fail("windowed flash disagrees with its plain version: " + "; ".join(bad))
+
+
+def hybrid_phase(name: str, kernels: list, row: dict) -> dict:
+    """The hybrid family on the card (recurrentgemma-9b, random weights from
+    seed 0): served at full width and depth in bf16 (flash one a group, all
+    on the CUDA-core kernel with the window), one request past the window at
+    two max_seq (``_hybrid_past_window``), the HYBRID_PATH_LAYERS-layer
+    model through the kernels against their plain versions in float32
+    (``_hybrid_paths``), and trained at HYBRID_TRAIN_LAYERS layers
+    (``_hybrid_train``).  Every earlier phase's tensor is freed first
+    (gated).  ``row`` is the windowed flash row (``hybrid_kernel_phase``),
+    given its launches here.  Returns the ``hybrid`` JSON object."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated() / 1e9
+    cfg = get_config(HYBRID_ARCH)
+    n = count_params(cfg)
+    print(f"hybrid: {cfg.name}: {n:,} parameters ({cfg.n_layers} layers = "
+          f"{cfg.n_layers // 3} groups of (RG-LRU, RG-LRU, local attention) + "
+          f"{cfg.n_layers % 3} RG-LRU tail layers, d_model {cfg.d_model}, d_rnn "
+          f"{cfg.d_rnn}, {cfg.n_heads} heads of {cfg.head_dim}, {cfg.n_kv_heads} KV head, "
+          f"window {cfg.window}), {2 * n / 1e9:.2f} GB of bf16; device memory still "
+          f"allocated before the phase {held:.3f} GB (need <= {MOE_HELD_GB})")
+    if held > MOE_HELD_GB:
+        fail(f"{held:.3f} GB of earlier phases' tensors still on the card")
+    rng = np.random.default_rng(0)
+    reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab, n_)],
+                    max_new_tokens=NEW_TOKENS) for n_ in PROMPT_LENS]
+    parts = {}
+
+    def part(label, fn, *args):
+        t1 = time.perf_counter()
+        out = fn(*args)
+        parts[label] = time.perf_counter() - t1
+        return out
+
+    serve, serve_counts, params = part("serve", _serve, cfg, reqs, "hybrid")
+    serve["device_ms_by_layer"] = part("by layer", _hybrid_by_layer, cfg, params, reqs)
+    serve["past_window"] = part("past window", _hybrid_past_window, cfg, params, rng)
+    del params
+    gc.collect()                # the engines' spies hold their params in a cycle
+    torch.cuda.empty_cache()
+    paths = part("paths", _hybrid_paths,
+                 cfg.with_(n_layers=HYBRID_PATH_LAYERS, dtype="float32"), reqs, rng)
+    held = torch.cuda.memory_allocated() / 1e9
+    print(f"hybrid: device memory still allocated before training {held:.3f} GB")
+    train, train_counts = part("train", _hybrid_train, cfg.with_(n_layers=HYBRID_TRAIN_LAYERS))
+    for kern in kernels:        # the main path: the served and the trained run
+        kern["launches_by_path"]["hybrid"] = (serve_counts[kern["name"]]
+                                              + train_counts[kern["name"]])
+    row["launches_by_path"] = {"hybrid": serve_counts["flash_attention"]
+                               + train_counts["flash_attention"]}
+    row["launches"] = row["launches_by_path"]["hybrid"]
+    gc.collect()        # the traced graphs and the engines' cycles, before serving's timed runs
+    torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t0
+    print(f"hybrid: phase {phase_s:.1f}s (budget {HYBRID_BUDGET_S:.0f}s, printed): "
+          + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    return {"device": name, "config": f"{cfg.name} served at {cfg.n_layers} layers, "
+            f"paths at {HYBRID_PATH_LAYERS} in float32, trained at {HYBRID_TRAIN_LAYERS}, "
+            f"random weights from seed 0", "serve": serve, "paths": paths,
+            "train": train, "kernel": {k: row[k] for k in ("ms", "bound_ms", "plain_ms",
+                                                          "library_ms", "launches")},
+            "phase_s": phase_s, "parts_s": parts}
+
+
+def _hybrid_by_layer(cfg, params, reqs) -> dict:
+    """Where the served model's device time goes: one prefill of the
+    requests and one decode step on their cache, each traced
+    (``trace_measured``, one capture after one warm-up call), the device
+    ms summed by layer scope (``rglru``, ``attn``, ``mlp``, ``norm``,
+    ``embed``, ``unembed``; None: outside any)."""
+    model = build_model(cfg)
+    toks = _prompt_tokens(reqs)
+    plen = toks.shape[1]
+    out = {}
+    with torch.inference_mode():
+        cache = init_cache(cfg, len(reqs), plen + 1, DEV)
+        for label, fn in (("prefill", lambda: model.prefill(params, {"tokens": toks})),
+                          ("decode step", lambda: model.decode(params, cache, toks[:, :1],
+                                                               plen))):
+            graph = trace_measured(fn, device=DEV, warmup=1, profiles=1).graph
+            by = {}
+            for t in graph.lane_tasks(DEVICE_STREAM):
+                by[str(t.layer)] = by.get(str(t.layer), 0.0) + t.duration * 1e3
+            out[label] = dict(sorted(by.items(), key=lambda kv: -kv[1]))
+            total = sum(by.values())
+            print(f"hybrid: device ms by layer per {label} ({total:.3f} ms traced): "
+                  + "; ".join(f"{k} {v:.3f} ({v / total:.1%})"
+                              for k, v in out[label].items()))
+    del cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _hybrid_past_window(cfg, params, rng) -> dict:
+    """One request of HYBRID_PAST prompt tokens (past the window) and
+    NEW_TOKENS new ones through ``ServeEngine.generate`` at each max_seq of
+    HYBRID_CACHE_SEQS: the prefill's K/V arrives as a rolled ring of the
+    window; the bytes of the cache the engine grows and the tokens must be
+    equal at every max_seq, the flash launches one a group on the CUDA-core
+    kernel."""
+    prompt = [int(t) for t in rng.integers(1, cfg.vocab, HYBRID_PAST)]
+    out, tokens = {}, []
+    for max_seq in HYBRID_CACHE_SEQS:
+        engine = ServeEngine(cfg, params, max_seq=max_seq, device=DEV)
+        grown = []
+        plain = engine._grow_cache
+
+        def spy(prefix, plen, plain=plain, grown=grown):
+            grown.append(plain(prefix, plen))
+            return grown[-1]
+
+        engine._grow_cache = spy
+        ops.reset_launch_counts()
+        res = engine.generate([Request(prompt, NEW_TOKENS)])
+        counts, by_variant = ops.launch_counts(), dict(flash_kernel.launches_by_variant)
+        st = engine.stats
+        ring = grown[-1][0]["attn"]["k"].shape[1]
+        out[str(max_seq)] = {"cache_bytes": _cache_bytes(grown[-1]), "ring": ring,
+                             "host_prefill_ms": st["prefill_s"] * 1e3,
+                             "host_decode_ms": st["decode_s"] / st["decode_steps"] * 1e3,
+                             "flash_by_kernel": by_variant}
+        tokens.append(res[0].tokens)
+        print(f"hybrid: past the window: one request of {HYBRID_PAST} tokens at max_seq "
+              f"{max_seq}: prefill {st['prefill_s'] * 1e3:.2f} ms host, decode "
+              f"{out[str(max_seq)]['host_decode_ms']:.3f} ms/token host; the engine's "
+              f"cache {out[str(max_seq)]['cache_bytes']:,} B, K/V ring of {ring} "
+              f"positions; flash by kernel {by_variant} (need scalar {_flashes(cfg)})")
+        if by_variant != {"wgmma": 0, "scalar": _flashes(cfg)} or ring != cfg.window:
+            fail(f"hybrid past the window: flash {by_variant}, ring {ring}")
+        del engine, grown
+    sizes = {k: o["cache_bytes"] for k, o in out.items()}
+    same = tokens[0] == tokens[1]
+    print(f"hybrid: cache bytes by max_seq {sizes} (need all equal); tokens equal "
+          f"{same} (need True)")
+    if len(set(sizes.values())) != 1 or not same:
+        fail(f"the hybrid decode cache or tokens change with max_seq: {sizes} {tokens}")
+    if not all(0 <= t < cfg.vocab for t in tokens[0]) or len(tokens[0]) != NEW_TOKENS:
+        fail(f"bad hybrid generation past the window {tokens[0]}")
+    return out
+
+
+def _hybrid_paths(cfg, reqs, rng) -> dict:
+    """The float32 model at HYBRID_PATH_LAYERS layers (attention projections
+    rescaled, as the moe phase does): its prefill and one decode step
+    through the kernels against the same through their plain versions
+    (logits within MOE_LOGITS_RTOL of their largest magnitude; launches
+    exact: flash one a group, on the CUDA-core kernel, RMSNorm ``_norms`` a
+    forward), the engine's greedy tokens on both paths (equal), and decode
+    step S against a fresh prefill of S + 1 tokens with S = HYBRID_PAST,
+    past the window (within HYBRID_DECODE_RTOL)."""
+    params = init_params(cfg, seed=0, device=DEV)
+    _rescale_attention(cfg, params)
+    model = build_model(cfg)
+    toks = _prompt_tokens(reqs)
+    plen = toks.shape[1]
+    nxt = toks[:, -1:]
+    with torch.inference_mode():
+        ops.reset_launch_counts()
+        got, cache = model.prefill(params, {"tokens": toks})
+        got_dec, _ = model.decode(params, cache, nxt, plen)
+        sync()
+        counts, by_variant = ops.launch_counts(), dict(flash_kernel.launches_by_variant)
+        with _plain_kernels():
+            want, cache = model.prefill(params, {"tokens": toks})
+            want_dec, _ = model.decode(params, cache, nxt, plen)
+        sync()
+    plain_counts = ops.launch_counts()
+    rel = max_err(got, want) / want.abs().max().item()
+    rel_dec = max_err(got_dec, want_dec) / want_dec.abs().max().item()
+    engine = ServeEngine(cfg, params, max_seq=plen + NEW_TOKENS, device=DEV)
+    kernel_toks = [r.tokens for r in engine.generate(reqs)]
+    with _plain_kernels():
+        plain_toks = [r.tokens for r in engine.generate(reqs)]
+    same = sum(a == b for ka, pa in zip(kernel_toks, plain_toks) for a, b in zip(ka, pa))
+    seq = torch.tensor(rng.integers(1, cfg.vocab, (1, HYBRID_PAST + 1)), device=DEV)
+    finite, top1, rel_s = _decode_vs_prefill(cfg, params, seq)
+    need = {"flash_attention": _flashes(cfg), "rmsnorm": 2 * _norms(cfg),
+            "fused_adam": 0, "dgc_mask": 0}
+    print(f"hybrid: {cfg.n_layers} layers, float32, prefill of {tuple(toks.shape)} and "
+          f"one decode step: kernel path against plain path, logits {rel:.3g} and "
+          f"{rel_dec:.3g} of their largest magnitude (need <= {MOE_LOGITS_RTOL}); greedy "
+          f"tokens through the engine {same} of {sum(map(len, kernel_toks))} equal (need "
+          f"all); launches {counts}, flash by kernel {by_variant} then {plain_counts} "
+          f"(need {need}, all scalar, then unchanged); decode vs a fresh prefill at "
+          f"S={HYBRID_PAST}, past the window: relative max error {rel_s:.3g}, top-1 "
+          f"agreement {top1:.3f}, finite {finite} (need <= {HYBRID_DECODE_RTOL}, True)")
+    if not (rel <= MOE_LOGITS_RTOL and rel_dec <= MOE_LOGITS_RTOL
+            and kernel_toks == plain_toks):
+        fail("the hybrid model's kernel path disagrees with its plain path")
+    if (counts != need or plain_counts != counts
+            or by_variant != {"wgmma": 0, "scalar": _flashes(cfg)}):
+        fail(f"hybrid kernel-path launches {counts} {by_variant}, {plain_counts} != {need}")
+    if not (finite and rel_s <= HYBRID_DECODE_RTOL):
+        fail(f"hybrid decode past the window disagrees with a fresh prefill: {rel_s:.3g}")
+    del params, model, engine, got, want, got_dec, want_dec, cache
+    torch.cuda.empty_cache()
+    return {"layers": cfg.n_layers, "dtype": "float32", "prefill_logits_rel_err": rel,
+            "decode_logits_rel_err": rel_dec, "greedy_tokens_equal": same,
+            "decode_vs_prefill_past_window": {"S": HYBRID_PAST, "rel_err": rel_s,
+                                              "top1": top1}}
+
+
+def _hybrid_train(cfg) -> tuple:
+    """``Trainer.step_fn`` with ``AdamW(fused=True)`` at full width and
+    ``cfg.n_layers`` layers (attention projections rescaled, as
+    ``loss_falls_phase``) on one ``SyntheticLM`` batch of 1 x TRAIN_SEQ,
+    HYBRID_TRAIN_STEPS steps, each timed by CUDA events: the loss finite
+    and falling, launches exact per step (flash one a group, on the
+    CUDA-core kernel with the window; its backward plain), the peak device
+    memory printed.  (JSON, launches)."""
+    L, S = cfg.n_layers, TRAIN_SEQ
+    n = count_params(cfg)
+    flops = 6 * n * S
+    per_step = {"flash_attention": _flashes(cfg), "rmsnorm": _norms(cfg), "fused_adam": 1,
+                "dgc_mask": 0}
+    trainer = Trainer(cfg, TrainerConfig(steps=HYBRID_TRAIN_STEPS, log_every=0, seed=0),
+                      optimizer=AdamW(fused=True), device=DEV)
+    batch = {k: torch.from_numpy(v).to(DEV)
+             for k, v in SyntheticLM(cfg.vocab, S, 1, seed=0).batch_at(0).items()}
+    holder = {"state": trainer.init_state()}
+    _rescale_attention(cfg, holder["state"]["params"])
+    losses, step_counts, by_variant = [], [], []
+
+    def one_step():
+        holder["state"], m = trainer.step_fn(holder["state"], batch)
+        losses.append(m["loss"])
+        step_counts.append(ops.launch_counts())
+        by_variant.append(dict(flash_kernel.launches_by_variant))
+        ops.reset_launch_counts()
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    times = []
+    for _ in range(HYBRID_TRAIN_STEPS):
+        times.append(measure_wallclock(one_step, device=DEV, iters=1, warmup=0) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(x) for x in losses]
+    step_ms = float(np.median(times[1:]))
+    print(f"hybrid: train {cfg.name} at {L} layers ({L // 3} group), full width, 1 x "
+          f"{S}, {n:,} parameters, AdamW(fused=True), {HYBRID_TRAIN_STEPS} steps on one "
+          f"batch: losses " + ", ".join(f"{x:.4f}" for x in losses) + " (need finite, "
+          f"the last below the first); step ms " + ", ".join(f"{t:.1f}" for t in times)
+          + f" (CUDA events; step 0 the warm-up), {step_ms:.1f} ms, mfu "
+          f"{flops / step_ms / 1e-3 / PEAK_BF16_FLOPS:.4f} (6 x params x tokens / step / "
+          f"989e12); peak device memory {peak:.2f} GB; launches per step {step_counts}, "
+          f"flash by kernel {by_variant} (need {per_step} each, flash scalar); the "
+          f"update's fused_adam launches {[c['fused_adam'] for c in step_counts]}")
+    if any(c != per_step for c in step_counts) or any(
+            v != {"wgmma": 0, "scalar": per_step["flash_attention"]} for v in by_variant):
+        fail(f"hybrid train launch counts {step_counts} {by_variant}")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        fail(f"hybrid loss did not fall over {HYBRID_TRAIN_STEPS} steps on one batch: "
+             f"{losses}")
+    del holder, trainer, batch
+    torch.cuda.empty_cache()
+    counts = {k: v * HYBRID_TRAIN_STEPS for k, v in per_step.items()}
+    return {"layers": L, "params": n, "batch": 1, "seq": S, "losses": losses,
+            "step_ms": step_ms, "step_ms_each": times, "tokens_per_s": S / step_ms * 1e3,
+            "flops_per_step": flops, "mfu": flops / step_ms / 1e-3 / PEAK_BF16_FLOPS,
+            "peak_gb": peak, "launches_per_step": per_step}, counts
+
+
 MOE_ROWS = [("attention", lambda k: k.startswith("attn ")),
             ("moe (routed experts)", lambda k: k.startswith("moe ")),
             ("moe (shared experts)", lambda k: k.startswith("mlp ")),
@@ -4238,12 +4667,13 @@ def loss_falls_phase(cfg, trainer) -> None:
 
 
 def _rescale_attention(cfg, params) -> None:
-    """In place: wq, wk, wv to std 1/sqrt(d), wo to std 1/sqrt(H * hd); MLA's
-    wq_b to std 1/sqrt(q_lora), wk_b and wv_b to std 1/sqrt(kv_lora), so q,
-    k and v have entries of std ~1, and wo as GQA's."""
+    """In place: wq, wk, wv to std 1/sqrt(d), wo to std 1/sqrt(H * hd) (the
+    hybrid family's in each group's attention sub-block); MLA's wq_b to std
+    1/sqrt(q_lora), wk_b and wv_b to std 1/sqrt(kv_lora), so q, k and v
+    have entries of std ~1, and wo as GQA's."""
     d, H, K = cfg.d_model, cfg.n_heads, cfg.n_kv_heads
     for lp in params["blocks"]:
-        a = lp["attn"]
+        a = lp["attn"]["attn"] if cfg.family == "hybrid" else lp["attn"]
         if cfg.family == "mla_moe":
             a["wq_b"] *= (H / cfg.q_lora) ** 0.5
             a["wk_b"] *= (H / cfg.kv_lora) ** 0.5
@@ -4335,6 +4765,7 @@ def main() -> None:
     deepseek_rows = phase("deepseek kernels", deepseek_kernel_phase)
     moe_rows = phase("moe kernels", moe_kernel_phase)
     ssm_rows = phase("ssm kernels", ssm_kernel_phase)
+    hybrid_row = phase("hybrid kernels", hybrid_kernel_phase)
     n_params = phase("serve", serve_phase, cfg, kernels)
     kernels += phase("adam, dgc", adam_dgc_phase, n_params)
     phase("train", train_phase, cfg, kernels, n_params)
@@ -4349,11 +4780,13 @@ def main() -> None:
     moe = phase("moe", moe_phase, name, kernels, moe_rows)
     deepseek = phase("deepseek", deepseek_phase, name, kernels, deepseek_rows)
     ssm = phase("ssm", ssm_phase, name, kernels, ssm_rows)
+    hybrid = phase("hybrid", hybrid_phase, name, kernels, hybrid_row)
     serving = phase("serving", serving_phase)   # last: no profiled phase follows its launches
     for kern in kernels:    # the count from this slice's main path, or its own
         paths = kern["launches_by_path"]
         paths["serving"] = serving["launches"][kern["name"]]
         kern["launches"] = paths["launch"] or paths.get("dgc", 0)
+    kernels.append(hybrid_row)      # the windowed flash: its main path is the hybrid phase
     keys = ["name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "event_ms", "event_ms_apart",
             "profiler",
@@ -4361,7 +4794,7 @@ def main() -> None:
             "launches_by_path", "launches_per_train_step"]
     extra = ["scalar_ms", "scalar_max_abs_err", "share_of_bound", "ratio_to_library",
              "scalar_source", "launches_by_variant", "train_shape", "library_call",
-             "head_dim_256", "plan"]
+             "head_dim_256", "plan", "window", "sdpa_max_abs_err"]
     total = time.perf_counter() - t0
     print(f"chip_smoke: all phases passed in {total:.1f}s; by phase "
           + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
@@ -4375,6 +4808,7 @@ def main() -> None:
     print(json.dumps({"moe": moe}))
     print(json.dumps({"deepseek": deepseek}))
     print(json.dumps({"ssm": ssm}))
+    print(json.dumps({"hybrid": hybrid}))
     print(json.dumps({"phase_s": {**seconds, "total": total}}))
     print(json.dumps({"kernels": [{k: kern[k] for k in keys + extra if k in kern}
                                   for kern in kernels]}))

@@ -21,9 +21,10 @@ from typing import Dict, List, Tuple
 
 from repro_torch.models.model import ModelConfig
 
-# the archs whose model the port builds (families dense, moe, mla_moe, ssm)
+# the archs whose model the port builds (families dense, moe, mla_moe, ssm,
+# hybrid)
 ARCHS = ["tinyllama-1.1b", "llama3.2-1b", "llama3-405b", "moonshot-v1-16b-a3b",
-         "deepseek-v2-236b", "mamba2-2.7b"]
+         "deepseek-v2-236b", "mamba2-2.7b", "recurrentgemma-9b"]
 
 
 def fold_name(arch: str) -> str:

@@ -8,9 +8,11 @@ state and trainer state.
 
 The reference's tree is ``embed.table``, ``final_norm.scale``,
 ``unembed.table`` and ``blocks.{ln1.scale, attn.{wq,wk,wv,wo}, ln2.scale,
-mlp.{w_up,w_gate,w_down}}`` stacked on a leading layer axis, and its AdamW
-state ``{m, v, count, gnorm}``; the port's trees keep ``blocks`` as a list
-of per-layer dicts and its AdamW m and v flat-backed (``optim.opt_state``).
+mlp.{w_up,w_gate,w_down}}`` stacked on a leading layer axis (the hybrid
+family's ``blocks`` are groups ``{rec1, rec2, attn}``, and its ``tail``
+recurrent sub-blocks are stacked too), and its AdamW state ``{m, v, count,
+gnorm}``; the port's trees keep ``blocks`` and ``tail`` as lists of
+per-block dicts and its AdamW m and v flat-backed (``optim.opt_state``).
 Inputs may be numpy trees (this module never imports JAX; bfloat16 leaves,
 numpy's ``ml_dtypes`` type, are carried through float32, which is exact) or
 tensors.  ``*_to_jax`` return numpy trees with bfloat16 carried as float32;
@@ -28,7 +30,8 @@ import torch
 from torch.utils._pytree import tree_map
 
 from repro_torch import resolve_device
-from repro_torch.models.model import ModelConfig, _check_supported, init_params
+from repro_torch.models.model import (ModelConfig, _check_supported, _n_blocks,
+                                      _n_tail, init_params)
 from repro_torch.optim import opt_state
 
 
@@ -43,6 +46,14 @@ def _tensor(a, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
     return torch.tensor(a, dtype=dtype, device=device)
 
 
+def _stacks(cfg: ModelConfig) -> Dict[str, int]:
+    """The stacked subtrees of the config's params and their depths."""
+    out = {"blocks": _n_blocks(cfg)}
+    if _n_tail(cfg):
+        out["tail"] = _n_tail(cfg)
+    return out
+
+
 def _depth(blocks: Dict[str, Any]) -> int:
     """The leading (layer) axis of a stacked blocks tree: any leaf's."""
     while isinstance(blocks, dict):
@@ -52,9 +63,9 @@ def _depth(blocks: Dict[str, Any]) -> int:
 
 def _split_layers(cfg: ModelConfig, tree: Dict[str, Any], dtype, device
                   ) -> Dict[str, Any]:
-    """A params-shaped tree (blocks stacked) as tensors, blocks unstacked:
-    every leaf in ``dtype``, or, where ``dtype`` is a params-shaped tree of
-    dtypes (blocks a list), each leaf in its own."""
+    """A params-shaped tree (blocks and tail stacked) as tensors, blocks and
+    tail unstacked: every leaf in ``dtype``, or, where ``dtype`` is a
+    params-shaped tree of dtypes (blocks a list), each leaf in its own."""
     _check_supported(cfg)
     dev = resolve_device(device)
 
@@ -66,30 +77,33 @@ def _split_layers(cfg: ModelConfig, tree: Dict[str, Any], dtype, device
         a = sub if isinstance(sub, torch.Tensor) else np.asarray(sub)
         return _tensor(a if layer is None else a[layer], dt, dev)
 
-    n = _depth(tree["blocks"])
-    if n != cfg.n_layers:
-        raise ValueError(f"tree has {n} stacked layers, config {cfg.n_layers}")
-    block_dt = dtype["blocks"][0] if isinstance(dtype, dict) else dtype
-    out = conv({k: v for k, v in tree.items() if k != "blocks"}, dtype)
-    out["blocks"] = [conv(tree["blocks"], block_dt, i) for i in range(n)]
+    stacks = _stacks(cfg)
+    out = conv({k: v for k, v in tree.items() if k not in stacks}, dtype)
+    for key, want in stacks.items():
+        n = _depth(tree[key])
+        if n != want:
+            raise ValueError(f"tree has {n} stacked {key}, config {want}")
+        dt = dtype[key][0] if isinstance(dtype, dict) else dtype
+        out[key] = [conv(tree[key], dt, i) for i in range(n)]
     return out
 
 
 def _stack_layers(cfg: ModelConfig, tree: Dict[str, Any]) -> Dict[str, Any]:
-    """A port params-shaped tree with ``blocks`` stacked on a leading layer
-    axis (new tensors, on the leaves' device, dtypes kept)."""
+    """A port params-shaped tree with ``blocks`` (and ``tail``) stacked on a
+    leading layer axis (new tensors, on the leaves' device, dtypes kept)."""
     _check_supported(cfg)
-    if len(tree["blocks"]) != cfg.n_layers:
-        raise ValueError(f"tree has {len(tree['blocks'])} layers, config "
-                         f"{cfg.n_layers}")
+    stacks = _stacks(cfg)
 
     def stack(subs):
         if isinstance(subs[0], dict):
             return {k: stack([s[k] for s in subs]) for k in subs[0]}
         return torch.stack([s.detach() for s in subs])
 
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = stack(tree["blocks"])
+    out = {k: v for k, v in tree.items() if k not in stacks}
+    for key, want in stacks.items():
+        if len(tree[key]) != want:
+            raise ValueError(f"tree has {len(tree[key])} {key}, config {want}")
+        out[key] = stack(tree[key])
     return out
 
 

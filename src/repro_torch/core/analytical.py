@@ -74,9 +74,11 @@ def _kernel_cost(op: _Event) -> Tuple[float, float]:
     name, dims = op.name[len(KERNEL_PREFIX):], _dims(op)
     if name == "flash_attention":
         (B, H, S, D), KH, Dv = dims[0], dims[1][1], dims[2][3]
-        causal = str((op.args.get("Concrete Inputs") or [""] * 4)[3]) != "False"
+        concrete = list(op.args.get("Concrete Inputs") or []) + [""] * 5
+        causal = str(concrete[3]) != "False"
+        window = int(concrete[4]) if str(concrete[4]).isdigit() else 0
         return kernel_cost.flash_attention(B, H, KH, S, D, D_v=Dv, causal=causal,
-                                           itemsize=_itemsize(op))
+                                           window=window, itemsize=_itemsize(op))
     if name == "rmsnorm":
         x = dims[0]
         return kernel_cost.rmsnorm(_numel(x[:-1]), x[-1], itemsize=_itemsize(op),

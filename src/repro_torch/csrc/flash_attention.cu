@@ -23,6 +23,13 @@
 //     product reads it as float4 broadcasts too;
 //   * under `causal` the k-tile loop stops at the block's diagonal (a loop
 //     bound, not skipped grid steps), which halves the work;
+//   * a local `window` (RecurrentGemma's 2048; 0 = none) keeps key k for
+//     query q only where q - k < window, as the reference's
+//     chunked_attention(window=) masks it, with or without `causal`; the
+//     k-tile loop starts at the tile of the block's first row's first key,
+//     q0 - window + 1, so under `causal` a block visits at most
+//     window / 32 + 2 tiles of keys and the work grows as S x window, not
+//     S^2.  A row always keeps its own key, so none is wholly masked;
 //   * scores are kept in the log2 domain (q pre-scaled by log2(e)/sqrt(D))
 //     so the softmax uses exp2f.
 // The ragged S edge and the columns past D are zero-filled in shared memory
@@ -101,8 +108,8 @@ constexpr size_t smem_bytes() {
 template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          T* __restrict__ o, int group, int S, int D, int Dv, int causal, float scale_log2,
-          Strides sq, Strides sk, Strides sv, Strides so) {
+          T* __restrict__ o, int group, int S, int D, int Dv, int causal, int window,
+          float scale_log2, Strides sq, Strides sk, Strides sv, Strides so) {
   constexpr int KPAD = DQK + 4;
   constexpr int DPL = DV / 32;  // output columns per lane
   static_assert(DPL == 2 || DPL == 4 || DPL == 8, "DV must be 64, 128 or 256");
@@ -129,6 +136,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
   const int q_end = min(q0 + kBlockQ, S);
   const int n_tiles = causal ? (q_end - 1) / kBlockK + 1 : (S + kBlockK - 1) / kBlockK;
+  const int t_first = window > 0 ? max(0, q0 - window + 1) / kBlockK : 0;
   const int row0 = warp * kRowsPerWarp;
 
   float m[kRowsPerWarp], l[kRowsPerWarp], acc[kRowsPerWarp][DPL];
@@ -140,7 +148,7 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
     for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
   }
 
-  for (int t = 0; t < n_tiles; ++t) {
+  for (int t = t_first; t < n_tiles; ++t) {
     const int k0 = t * kBlockK;
     __syncthreads();  // the previous tile is consumed (and Qs is written)
     for (int i = tid; i < kBlockK * DQK; i += kThreads) {
@@ -173,7 +181,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
       const int qpos = q0 + row0 + r;
-      const bool valid = kpos < S && (!causal || kpos <= qpos);
+      const bool valid = kpos < S && (!causal || kpos <= qpos) &&
+                         (window <= 0 || qpos - kpos < window);
       const float sc = valid ? s[r] : -INFINITY;
       const float m_new = fmaxf(m[r], warp_max(sc));
       float corr = 1.f, p = 0.f;
@@ -235,8 +244,8 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
 
 template <typename T, int DQK, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                   int KH, int S, int D, int Dv, int causal, float scale_log2, Strides sq,
-                   Strides sk, Strides sv, Strides so, cudaStream_t stream) {
+                   int KH, int S, int D, int Dv, int causal, int window, float scale_log2,
+                   Strides sq, Strides sk, Strides sv, Strides so, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -244,7 +253,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
   const dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
   flash_fwd<T, DQK, DV><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), H / KH, S, D, Dv, causal, scale_log2, sq, sk, sv, so);
+      static_cast<T*>(o), H / KH, S, D, Dv, causal, window, scale_log2, sq, sk, sv, so);
   return cudaGetLastError();
 }
 
@@ -252,10 +261,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // and Dv in buckets of 64, 128, 256.
 template <typename T, int DQK>
 cudaError_t dispatch_dv(const void* q, const void* k, const void* v, void* o, int B, int H,
-                        int KH, int S, int D, int Dv, int causal, float scale_log2,
-                        Strides sq, Strides sk, Strides sv, Strides so, cudaStream_t st) {
-#define REPRO_FLASH_LAUNCH(DV) \
-  launch<T, DQK, DV>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq, sk, sv, so, st)
+                        int KH, int S, int D, int Dv, int causal, int window,
+                        float scale_log2, Strides sq, Strides sk, Strides sv, Strides so,
+                        cudaStream_t st) {
+#define REPRO_FLASH_LAUNCH(DV)                                                              \
+  launch<T, DQK, DV>(q, k, v, o, B, H, KH, S, D, Dv, causal, window, scale_log2, sq, sk, sv, \
+                     so, st)
   if (Dv <= 64) return REPRO_FLASH_LAUNCH(64);
   if (Dv <= 128) return REPRO_FLASH_LAUNCH(128);
   return REPRO_FLASH_LAUNCH(256);
@@ -264,10 +275,11 @@ cudaError_t dispatch_dv(const void* q, const void* k, const void* v, void* o, in
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, int B, int H,
-                     int KH, int S, int D, int Dv, int causal, float scale_log2, Strides sq,
-                     Strides sk, Strides sv, Strides so, cudaStream_t st) {
-#define REPRO_FLASH_DISPATCH(DQK) \
-  dispatch_dv<T, DQK>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq, sk, sv, so, st)
+                     int KH, int S, int D, int Dv, int causal, int window, float scale_log2,
+                     Strides sq, Strides sk, Strides sv, Strides so, cudaStream_t st) {
+#define REPRO_FLASH_DISPATCH(DQK)                                                          \
+  dispatch_dv<T, DQK>(q, k, v, o, B, H, KH, S, D, Dv, causal, window, scale_log2, sq, sk, sv, \
+                      so, st)
   if (D <= 64) return REPRO_FLASH_DISPATCH(64);
   if (D <= 128) return REPRO_FLASH_DISPATCH(128);
   if (D <= 192) return REPRO_FLASH_DISPATCH(192);
@@ -281,24 +293,27 @@ extern "C" {
 
 // q: (B, H, S, D); k: (B, KH, S, D); v: (B, KH, S, Dv); o: (B, H, S, Dv),
 // addressed through the given strides (elements; the last dim contiguous).
-// D <= 256, Dv <= 256.  dtype: 0 = float32, 1 = bfloat16.  scale_log2 is
+// D <= 256, Dv <= 256.  dtype: 0 = float32, 1 = bfloat16.  window > 0 keeps
+// key k for query q only where q - k < window (0 = every key).  scale_log2 is
 // log2(e) / sqrt(D).  Returns cudaGetLastError() after the launch.
 int repro_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                               int dtype, int B, int H, int KH, int S, int D, int Dv,
-                              int causal, float scale_log2, long long sqb, long long sqh,
-                              long long sqs, long long skb, long long skh, long long sks,
+                              int causal, int window, float scale_log2, long long sqb,
+                              long long sqh, long long sqs, long long skb, long long skh,
+                              long long sks,
                               long long svb, long long svh, long long svs, long long sob,
                               long long soh, long long sos, void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || D <= 0 || D > 256 ||
-      Dv <= 0 || Dv > 256 || H > 65535 || B > 65535 || (dtype != 0 && dtype != 1))
+      Dv <= 0 || Dv > 256 || H > 65535 || B > 65535 || window < 0 ||
+      (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs}, so{sob, soh, sos};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return (int)dispatch<float>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq, sk,
-                                sv, so, st);
-  return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, H, KH, S, D, Dv, causal, scale_log2, sq,
-                                      sk, sv, so, st);
+    return (int)dispatch<float>(q, k, v, o, B, H, KH, S, D, Dv, causal, window, scale_log2,
+                                sq, sk, sv, so, st);
+  return (int)dispatch<__nv_bfloat16>(q, k, v, o, B, H, KH, S, D, Dv, causal, window,
+                                      scale_log2, sq, sk, sv, so, st);
 }
 
 const char* repro_cuda_error_string(int err) {

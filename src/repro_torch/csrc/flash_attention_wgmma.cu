@@ -674,15 +674,17 @@ extern "C" {
 // through the given strides (elements; the last dim contiguous).  dtype must
 // be 1 (bfloat16), D and Dv multiples of 8 with either D, Dv <= 128 or
 // D <= 192, Dv <= 128, q/k/v 16-byte aligned with b/h/s strides positive
-// multiples of 8.  scale_log2 is log2(e) / sqrt(D).  Returns
-// cudaGetLastError() after the launch, or the error that kept it from
-// launching.
+// multiples of 8.  window must be 0: this kernel has no local window, and
+// refuses one rather than ignore it.  scale_log2 is log2(e) / sqrt(D).
+// Returns cudaGetLastError() after the launch, or the error that kept it
+// from launching.
 int repro_flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
                                     int dtype, int B, int H, int KH, int S, int D, int Dv,
-                                    int causal, float scale_log2, long long sqb, long long sqh,
-                                    long long sqs, long long skb, long long skh, long long sks,
-                                    long long svb, long long svh, long long svs, long long sob,
-                                    long long soh, long long sos, void* stream) {
+                                    int causal, int window, float scale_log2, long long sqb,
+                                    long long sqh, long long sqs, long long skb, long long skh,
+                                    long long sks, long long svb, long long svh, long long svs,
+                                    long long sob, long long soh, long long sos, void* stream) {
+  if (window != 0) return (int)cudaErrorInvalidValue;
   const Strides sq{sqb, sqh, sqs}, sk{skb, skh, sks}, sv{svb, svh, svs}, so{sob, soh, sos};
   if (dtype != 1 || B <= 0 || H <= 0 || KH <= 0 || H % KH != 0 || S <= 0 || D <= 0 || D > 192 ||
       D % 8 != 0 || Dv <= 0 || Dv > 128 || Dv % 8 != 0 ||

@@ -15,13 +15,25 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 
+def _pairs(S: int, causal: bool, window: int) -> int:
+    """The (query, key) pairs of one head the mask keeps: ``k <= q`` under
+    ``causal``, ``q - k < window`` where ``window > 0``."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2 if causal else S * S
+    if causal:          # min(q + 1, window) keys for query q
+        return window * (window + 1) // 2 + (S - window) * window
+    past = S - window   # query q loses its first max(0, q - window + 1) keys
+    return S * S - past * (past + 1) // 2
+
+
 def flash_attention(B: int, H: int, KH: int, S: int, D: int, *,
                     D_v: Optional[int] = None, causal: bool = True,
-                    itemsize: int = 2) -> Tuple[float, float]:
+                    window: int = 0, itemsize: int = 2) -> Tuple[float, float]:
     """q: (B, H, S, D), k: (B, KH, S, D), v: (B, KH, S, D_v), o: (B, H, S, D_v)
-    (``D_v`` defaults to ``D``); elements of ``itemsize``."""
+    (``D_v`` defaults to ``D``); elements of ``itemsize``; a local
+    ``window`` counts only the pairs it keeps."""
     Dv = D if D_v is None else D_v
-    pairs = B * H * S * (S + 1) // 2 if causal else B * H * S * S
+    pairs = B * H * _pairs(S, causal, window)
     return 2.0 * (D + Dv) * pairs, float(itemsize * (B * H * S * (D + Dv)
                                                       + B * KH * S * (D + Dv)))
 

@@ -12,9 +12,14 @@ from dtype, head dim, base pointers and strides alone, before the launch:
   tensor cores;
 * ``"scalar"``, ``repro_torch/csrc/flash_attention.cu``: everything else, on
   the f32 CUDA cores.  f32 stays there because it must meet atol 2e-3, which
-  TF32 tensor cores do not; bf16 with an odd head dim, unaligned strides or
-  a head dim past the tensor-core kernel's (RecurrentGemma's 256) goes
-  there too.
+  TF32 tensor cores do not; bf16 with an odd head dim, unaligned strides, a
+  head dim past the tensor-core kernel's (RecurrentGemma's 256) or a local
+  ``window`` goes there too.
+
+``window > 0`` keeps key ``k`` for query ``q`` only where ``q - k < window``
+(the reference's ``chunked_attention(window=)``, RecurrentGemma's local
+attention), with or without ``causal``; only the CUDA-core kernel takes it,
+and the tensor-core kernel's entry point refuses one.
 
 q and k share one head dim ``D`` and v and the output have their own,
 ``D_v`` (DeepSeek-V2's MLA: 192 and 128); ``D <= 256`` and ``D_v <= 256``
@@ -64,7 +69,7 @@ def _fn(variant: str):
     lib_name, symbol = _LIBS[variant]
     lib = _build.load(lib_name)
     fn = getattr(lib, symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_float]
+    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_float]
                    + [ctypes.c_longlong] * 12 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
@@ -72,11 +77,13 @@ def _fn(variant: str):
     return fn, lib.repro_cuda_error_string
 
 
-def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             window: int = 0) -> str:
     """``"wgmma"`` where the tensor-core kernel takes q, k, v, else
-    ``"scalar"``: from dtype, head dims, base pointers and strides only."""
+    ``"scalar"``: from the window, dtype, head dims, base pointers and
+    strides only."""
     D, Dv = q.shape[-1], v.shape[-1]
-    if (q.dtype != torch.bfloat16 or D % 8 or Dv % 8 or D > WGMMA_MAX_D
+    if (window > 0 or q.dtype != torch.bfloat16 or D % 8 or Dv % 8 or D > WGMMA_MAX_D
             or Dv > WGMMA_MAX_D_V):
         return "scalar"
     for t in (q, k, v):
@@ -109,25 +116,34 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
         raise ValueError("flash_attention: the last dimension must be contiguous")
 
 
+def _window(window: int) -> int:
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"flash_attention: window {window} < 0 (0 = none)")
+    return window
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
+                    causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, H, S, D); k: (B, KH, S, D); v: (B, KH, S, D_v), CUDA, f32 or
-    bf16 -> (B, H, S, D_v).
+    bf16 -> (B, H, S, D_v); ``window > 0`` masks keys ``window`` or more
+    positions before the query.
 
     Any strides with a contiguous last dimension; the output has q's memory
     layout (``_out``), so a (B, S, H, D) tensor passed as a transposed view
     comes back the same way.  The kernel is ``_variant``'s choice.
     """
     _check(q, k, v)
-    return _launch(_variant(q, k, v), q, k, v, causal)
+    window = _window(window)
+    return _launch(_variant(q, k, v, window), q, k, v, causal, window)
 
 
 def flash_attention_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           *, causal: bool = True) -> torch.Tensor:
+                           *, causal: bool = True, window: int = 0) -> torch.Tensor:
     """``flash_attention`` through the CUDA-core kernel whatever the inputs
     (it takes all of them), to time it beside the tensor-core kernel."""
     _check(q, k, v)
-    return _launch("scalar", q, k, v, causal)
+    return _launch("scalar", q, k, v, causal, _window(window))
 
 
 def _out(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -143,14 +159,14 @@ def _out(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-            causal: bool) -> torch.Tensor:
+            causal: bool, window: int = 0) -> torch.Tensor:
     global launches
     B, H, S, D = q.shape
     o = _out(q, v)
     fn, err_str = _fn(variant)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              _DTYPES[q.dtype], B, H, k.shape[1], S, D, v.shape[-1], int(causal),
-             math.log2(math.e) / math.sqrt(D),
+             window, math.log2(math.e) / math.sqrt(D),
              *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
              torch.cuda.current_stream(q.device).cuda_stream)
     if err:
@@ -162,15 +178,15 @@ def _launch(variant: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 _META_LIB = meta_library(
-    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal) -> Tensor",
-    lambda q, k, v, causal: _out(q, v))
+    "flash_attention(Tensor q, Tensor k, Tensor v, bool causal, int window=0) -> Tensor",
+    lambda q, k, v, causal, window=0: _out(q, v))
 
 
 def flash_attention_meta(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         causal: bool) -> torch.Tensor:
+                         causal: bool, window: int = 0) -> torch.Tensor:
     """The kernel's launch on meta tensors: its output, (B, H, S, D_v) as
     ``_launch`` allocates it (``_out``), and nothing computed or counted."""
-    return torch.ops.repro_torch.flash_attention(q, k, v, causal)
+    return torch.ops.repro_torch.flash_attention(q, k, v, causal, window)
 
 
 class FlashAttentionFn(torch.autograd.Function):
@@ -180,14 +196,15 @@ class FlashAttentionFn(torch.autograd.Function):
     v) and launches no kernel of this module."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool):
+    def forward(ctx, q, k, v, causal: bool, window: int = 0):
         ctx.save_for_backward(q, k, v)
-        ctx.causal = causal
+        ctx.causal, ctx.window = causal, window
         if q.is_meta:
-            return flash_attention_meta(q, k, v, causal)
-        return flash_attention(q, k, v, causal=causal)
+            return flash_attention_meta(q, k, v, causal, window)
+        return flash_attention(q, k, v, causal=causal, window=window)
 
     @staticmethod
     def backward(ctx, do):
         q, k, v = ctx.saved_tensors
-        return (*ref.flash_attention_bwd(q, k, v, do, causal=ctx.causal), None)
+        return (*ref.flash_attention_bwd(q, k, v, do, causal=ctx.causal,
+                                         window=ctx.window), None, None)

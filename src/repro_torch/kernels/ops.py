@@ -12,7 +12,7 @@ nothing computed and no launch counted.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -27,17 +27,20 @@ _KERNELS = {"flash_attention": _fa, "rmsnorm": _rn, "fused_adam": _ad,
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, block_q: int = 128,
-                    block_k: int = 128) -> torch.Tensor:
+                    causal: bool = True, window: Optional[int] = None,
+                    block_q: int = 128, block_k: int = 128) -> torch.Tensor:
     """q: (B, H, S, D); k: (B, KH, S, D); v: (B, KH, S, D_v) -> (B, H, S, D_v)
     in q's dtype (D <= 256, D_v <= 256; the scale is ``1/sqrt(D)``; past
     those the kernels' wrapper raises, where the reference pads D).
+    ``window`` (None or 0: none) keeps only keys less than ``window``
+    positions before each query, as ``chunked_attention(window=)``.
 
     ``block_q``/``block_k`` are the reference's tile keywords, accepted so its
     callers run unchanged and ignored: the CUDA kernels choose their tiles."""
+    window = window or 0
     if q.device.type == "cpu":
-        return ref.flash_attention_ref(q, k, v, causal=causal)
-    return _fa.FlashAttentionFn.apply(q, k, v, causal)
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+    return _fa.FlashAttentionFn.apply(q, k, v, causal, window)
 
 
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:

@@ -7,6 +7,9 @@ it with q/k head dim ``qk_nope + qk_rope`` and v head dim ``v_head_dim``.
 Decode attention (one query row against the cache) stays plain PyTorch, as
 it is no Pallas kernel in the reference; MLA decodes in the absorbed form,
 against a cache of the compressed ``c_kv`` and the shared ``k_rope``.
+A local ``window`` (RecurrentGemma's) runs in the flash kernel and keeps a
+ring of ``min(seq, window)`` positions as the decode cache, as the
+reference's ``gqa_attend``/``gqa_decode`` do.
 Layouts are the reference's: weights ``wq/wk/wv (d, H|K, hd)`` and
 ``wo (H, hd, d)``, activations ``(B, S, H, hd)``, KV cache ``(B, S, K, hd)``
 per layer; MLA's ``wq_a (d, q_lora)``, ``wq_b (q_lora, H, nope + rope)``,
@@ -17,7 +20,7 @@ per layer; MLA's ``wq_a (d, q_lora)``, ``wq_b (q_lora, H, nope + rope)``,
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch.profiler import record_function
@@ -113,35 +116,48 @@ def gqa_qkv(p: Params, x: torch.Tensor, cos, sin
 
 
 def gqa_attend(p: Params, x: torch.Tensor, cos, sin, *, causal: bool = True,
-               return_cache: bool = False):
-    """Prefill/training attention: x (B, S, d) -> (B, S, d) [, {"k","v"}]."""
+               window: Optional[int] = None, return_cache: bool = False):
+    """Prefill/training attention: x (B, S, d) -> (B, S, d) [, {"k","v"}].
+    With a ``window`` of at most S the cache is the last ``window``
+    positions, rolled so that position t sits in slot ``t % window`` (the
+    ring ``gqa_decode`` writes)."""
     with record_function("attn"):
         q, k, v = gqa_qkv(p, x, cos, sin)
         # (B, S, H, hd) tensors go to the kernel as (B, H, S, hd) views; its
         # output keeps q's memory layout, so the transpose back is free
         o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                v.transpose(1, 2), causal=causal).transpose(1, 2)
+                                v.transpose(1, 2), causal=causal,
+                                window=window).transpose(1, 2)
         out = _out(o, p["wo"])
     if not return_cache:
         return out
+    S = k.shape[1]
+    if window and S >= window:
+        k = torch.roll(k[:, S - window:], S % window, dims=1)
+        v = torch.roll(v[:, S - window:], S % window, dims=1)
     return out, {"k": k, "v": v}
 
 
 def gqa_decode(p: Params, x: torch.Tensor, cache: Params, pos: int,
-               theta: float) -> Tuple[torch.Tensor, Params]:
+               theta: float, *, window: Optional[int] = None
+               ) -> Tuple[torch.Tensor, Params]:
     """x: (B, 1, d); cache {"k","v"}: (B, S, K, hd); pos: int index.
 
     Writes the new token's K/V into the cache in place (the reference returns
-    an updated copy) and returns it.
+    an updated copy) and returns it.  With a ``window`` the cache is a ring
+    of its own length: slot ``pos % len``, and the ``min(pos + 1, len)``
+    entries written so far attended (their order does not matter).
     """
     with record_function("attn"):
         positions = torch.full((1,), pos, device=x.device)   # no host copy
         cos, sin = rope_angles(positions, p["wq"].shape[-1], theta)
         q = apply_rope(_proj(x, p["wq"]), cos[None], sin[None])
         k = apply_rope(_proj(x, p["wk"]), cos[None], sin[None])
-        cache["k"][:, pos:pos + 1] = k
-        cache["v"][:, pos:pos + 1] = _proj(x, p["wv"])
-        o = decode_attention(q, cache["k"], cache["v"], pos + 1)
+        W = cache["k"].shape[1]
+        slot, length = (pos % W, min(pos + 1, W)) if window else (pos, pos + 1)
+        cache["k"][:, slot:slot + 1] = k
+        cache["v"][:, slot:slot + 1] = _proj(x, p["wv"])
+        o = decode_attention(q, cache["k"], cache["v"], length)
         return _out(o, p["wo"]), cache
 
 

@@ -22,7 +22,13 @@ from .paramdecl import normal_param, ones_param
 
 Params = Dict[str, torch.Tensor]
 
-ACTIVATIONS = {"silu": F.silu}   # the ported configs' only activation
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form, as the reference's "gelu"."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"silu": F.silu, "gelu": gelu}
 
 
 def rmsnorm_init(gen: torch.Generator, d: int, dtype) -> Params:

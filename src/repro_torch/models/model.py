@@ -1,5 +1,5 @@
 """ModelConfig and the model API (counterpart of ``repro/models/model.py``),
-for the dense, moe, mla_moe and ssm families:
+for the dense, moe, mla_moe, ssm and hybrid families:
 
     init_params(cfg, seed, device)          -> params (meta: shapes only)
     loss_fn(cfg, params, batch)             -> scalar loss          (train)
@@ -7,24 +7,32 @@ for the dense, moe, mla_moe and ssm families:
     make_train_step(cfg, optimizer)         -> (state, batch) -> (state, metrics)
     prefill_fn(cfg, params, batch)          -> (last-token logits, caches)
     decode_fn(cfg, params, caches, tok, pos)-> (logits, caches)   (one token)
-    init_cache(cfg, batch, max_seq, device) -> zeroed per-layer caches
-    cache_seq_axes(cfg)                     -> each cache leaf's sequence axis
+    init_cache(cfg, batch, max_seq, device) -> zeroed per-block caches
+    cache_seq_axes(cfg)                     -> each block cache leaf's sequence axis
+    cache_axes(cfg)                         -> the same for every entry of init_cache
     count_params(cfg), active_params(cfg)   -> parameter counts (meta, no memory)
 
-Params are the reference's tree with ``blocks`` a list of per-layer dicts
-(the reference stacks them on a leading axis).  Caches are a list of one
-dict per layer, as the family's cache spec gives it: ``{"k", "v"}`` of
-shape ``(B, S, K, hd)`` (dense, moe), ``{"c_kv" (B, S, kv_lora), "k_rope"
-(B, S, qk_rope)}`` (mla_moe), ``{"conv" (B, 3, d_inner), "state" (B, H, 64,
-ssm_state)}`` (ssm: constant in S).  The ssm family has no RoPE, as in the
-reference.  The other families, local-attention windows, attention biases
-and LayerNorm raise ``NotImplementedError``.
+Params are the reference's tree with ``blocks`` (and the hybrid family's
+``tail``) a list of per-block dicts (the reference stacks them on a leading
+axis).  A block is one layer, or in the hybrid family a group of three
+(``rec1``, ``rec2``, ``attn``: RecurrentGemma's two recurrent sub-blocks and
+a local-attention one), and ``tail`` holds the ``n_layers % 3`` recurrent
+sub-blocks past the last group.  Caches are a list of one entry per block,
+then one per tail sub-block, as the family's cache spec gives it:
+``{"k", "v"}`` of shape ``(B, S, K, hd)`` (dense, moe; with a local window
+a ring of ``min(S, window)`` positions), ``{"c_kv" (B, S, kv_lora),
+"k_rope" (B, S, qk_rope)}`` (mla_moe), ``{"conv" (B, 3, d_inner), "state"
+(B, H, 64, ssm_state)}`` (ssm: constant in S), ``{"rec1", "rec2": {"conv"
+(B, 3, d_rnn), "h" (B, d_rnn) float32}, "attn": {"k", "v"}}`` (hybrid; a
+tail entry is one ``{"conv", "h"}``).  The ssm family has no RoPE, as in the
+reference.  The other families, attention biases and LayerNorm raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch.profiler import record_function
@@ -112,6 +120,8 @@ _FAMILY = {
                 T.mla_block_prefill, T.mla_cache_spec),
     "ssm": (T.ssm_block_init, T.ssm_block_apply, T.ssm_block_decode,
             T.ssm_block_prefill, T.ssm_cache_spec),
+    "hybrid": (T.hybrid_group_init, T.hybrid_group_apply, T.hybrid_group_decode,
+               T.hybrid_group_prefill, T.hybrid_cache_spec),
 }
 
 
@@ -120,7 +130,7 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ported: "
             f"{', '.join(_FAMILY)})")
-    for unported, name in ((cfg.window, "window"), (cfg.attn_bias, "attn_bias"),
+    for unported, name in ((cfg.attn_bias, "attn_bias"),
                            (cfg.norm != "rmsnorm", f"norm={cfg.norm!r}")):
         if unported:
             raise NotImplementedError(f"{name} is not ported yet")
@@ -131,9 +141,14 @@ def torch_dtype(cfg: ModelConfig) -> torch.dtype:
 
 
 def _n_blocks(cfg: ModelConfig) -> int:
-    """Blocks in the stack: one per layer in the ported families (the
-    reference's hybrid groups and encoder-decoder come with those families)."""
-    return cfg.n_layers
+    """Blocks in the stack: one per layer, or one per group of three in the
+    hybrid family (the reference's encoder-decoder comes with its family)."""
+    return cfg.n_layers // 3 if cfg.family == "hybrid" else cfg.n_layers
+
+
+def _n_tail(cfg: ModelConfig) -> int:
+    """The hybrid family's recurrent sub-blocks past its last group."""
+    return cfg.n_layers % 3 if cfg.family == "hybrid" else 0
 
 
 # -------------------------------------------------------------------- init
@@ -154,6 +169,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device="cuda") -> Params:
                                               scale=0.02)}
     binit = _FAMILY[cfg.family][0]
     p["blocks"] = [binit(cfg, gen, dt) for _ in range(_n_blocks(cfg))]
+    if _n_tail(cfg):
+        p["tail"] = [T._rec_sub_init(cfg, gen, dt) for _ in range(_n_tail(cfg))]
     return p
 
 
@@ -174,25 +191,65 @@ def active_params(cfg: ModelConfig) -> int:
     return total
 
 
+def _cache_specs(cfg: ModelConfig, batch: int, seq: int) -> List[Params]:
+    """One cache spec per entry of the cache: each block's, then each tail
+    sub-block's.  A spec is a dict whose leaves are shapes, in the config's
+    dtype, or ``(shape, dtype)`` pairs (the hybrid family's float32 state);
+    it may nest (a hybrid group's ``rec1``, ``rec2``, ``attn``)."""
+    specs = [_FAMILY[cfg.family][4](cfg, batch, seq)] * _n_blocks(cfg)
+    return specs + [T.rec_cache_spec(cfg, batch, seq)] * _n_tail(cfg)
+
+
+def _leaf(spec, default_dtype=None) -> Tuple[Tuple[int, ...], Any]:
+    """A cache spec leaf's (shape, dtype): a pair's own, or a shape's in
+    ``default_dtype``."""
+    if isinstance(spec[-1], torch.dtype):
+        return tuple(spec[0]), spec[1]
+    return tuple(spec), default_dtype
+
+
+def _spec_map(fn, spec, default_dtype):
+    """``fn(shape, dtype)`` over a cache spec's leaves, keeping its nesting."""
+    if isinstance(spec, dict):
+        return {k: _spec_map(fn, v, default_dtype) for k, v in spec.items()}
+    return fn(*_leaf(spec, default_dtype))
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, device
                ) -> List[Params]:
-    """Zeroed caches of ``max_seq`` positions, one dict per layer, of the
-    shapes the family's cache spec gives."""
+    """Zeroed caches of ``max_seq`` positions, one entry per block and tail
+    sub-block, each leaf of its spec's shape and dtype."""
     dev = resolve_device(device)
-    spec = _FAMILY[cfg.family][4](cfg, batch, max_seq)
-    return [{k: torch.zeros(shape, dtype=torch_dtype(cfg), device=dev)
-             for k, shape in spec.items()} for _ in range(cfg.n_layers)]
+    return [_spec_map(lambda shape, dt: torch.zeros(shape, dtype=dt, device=dev),
+                      spec, torch_dtype(cfg))
+            for spec in _cache_specs(cfg, batch, max_seq)]
 
 
-def cache_seq_axes(cfg: ModelConfig) -> Dict[str, Optional[int]]:
-    """For each leaf of one layer's cache, the axis that holds the sequence
+def _seq_axes(one, two):
+    """The axes tree of two specs at seq 1 and 2: each leaf's first axis of
+    differing length, None where none differs."""
+    if isinstance(one, dict):
+        return {k: _seq_axes(one[k], two[k]) for k in one}
+    return next((i for i, (a, b) in enumerate(zip(_leaf(one)[0], _leaf(two)[0]))
+                 if a != b), None)
+
+
+def cache_seq_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """For each leaf of one block's cache, the axis that holds the sequence
     positions: the one whose length follows ``seq`` in the family's cache
-    spec; ``None`` for a leaf of constant size (the ssm family's conv
-    window and state)."""
+    spec (a local window's ring included: its length is ``min(seq,
+    window)``); ``None`` for a leaf of constant size (the ssm family's conv
+    window and state, the hybrid family's ``conv`` and ``h``).  A hybrid
+    group's axes nest as its cache does."""
     spec = _FAMILY[cfg.family][4]
-    one, two = spec(cfg, 1, 1), spec(cfg, 1, 2)
-    return {k: next((i for i, (a, b) in enumerate(zip(one[k], two[k])) if a != b),
-                    None) for k in one}
+    return _seq_axes(spec(cfg, 1, 1), spec(cfg, 1, 2))
+
+
+def cache_axes(cfg: ModelConfig) -> List[Any]:
+    """``cache_seq_axes`` for every entry of ``init_cache``'s list: each
+    block's, then each tail sub-block's."""
+    return [_seq_axes(one, two) for one, two in
+            zip(_cache_specs(cfg, 1, 1), _cache_specs(cfg, 1, 2))]
 
 
 # ----------------------------------------------------------------- forward
@@ -223,6 +280,8 @@ def loss_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
     x = embed(p["embed"], batch["tokens"].long())
     cos, sin = _rope(cfg, x.shape[1], x.device)
     x, aux = T.run_stack(cfg, p["blocks"], x, _FAMILY[cfg.family][1], cos, sin)
+    for lp in p.get("tail", []):
+        x = T._rec_sub_apply(cfg, lp, x)
     h = rmsnorm(p["final_norm"], x)
     loss = softmax_cross_entropy_chunked(_unembed_params(cfg, p), h,
                                          batch["labels"], batch.get("mask"),
@@ -251,6 +310,9 @@ def prefill_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
     cos, sin = _rope(cfg, x.shape[1], x.device)
     x, caches = T.run_stack_prefill(cfg, p["blocks"], x, _FAMILY[cfg.family][3],
                                     cos, sin)
+    for lp in p.get("tail", []):
+        x, cache = T._rec_sub_prefill(cfg, lp, x)
+        caches.append(cache)
     h = rmsnorm(p["final_norm"], x)
     return _last_logits(cfg, p, h[:, -1]), caches
 
@@ -258,10 +320,15 @@ def prefill_fn(cfg: ModelConfig, p: Params, batch: Dict[str, torch.Tensor]
 def decode_fn(cfg: ModelConfig, p: Params, cache: List[Params],
               tokens: torch.Tensor, pos: int
               ) -> Tuple[torch.Tensor, List[Params]]:
-    """tokens: (B, 1) at position ``pos``; writes the caches in place."""
+    """tokens: (B, 1) at position ``pos``; writes the K/V caches in place
+    (the recurrent states are new tensors in the returned caches)."""
     x = embed(p["embed"], tokens)
-    x, new_caches = T.run_stack_decode(cfg, p["blocks"], cache, x,
+    n = len(p["blocks"])
+    x, new_caches = T.run_stack_decode(cfg, p["blocks"], cache[:n], x,
                                        _FAMILY[cfg.family][2], pos)
+    for lp, c in zip(p.get("tail", []), cache[n:]):
+        x, c = T._rec_sub_decode(cfg, lp, x, c)
+        new_caches.append(c)
     h = rmsnorm(p["final_norm"], x)
     return _last_logits(cfg, p, h[:, -1]), new_caches
 

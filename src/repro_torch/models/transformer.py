@@ -1,6 +1,6 @@
-"""Dense (GQA), MoE, MLA+MoE and SSM blocks and the layer loops
-(counterpart of the dense, moe, mla_moe and ssm families of
-``repro/models/transformer.py``).
+"""Dense (GQA), MoE, MLA+MoE and SSM blocks, the hybrid family's groups and
+the layer loops (counterpart of the dense, moe, mla_moe, ssm and hybrid
+families of ``repro/models/transformer.py``).
 
 Each family provides (init, train-apply, decode-apply, prefill, cache spec)
 with a uniform signature, as in the reference; ``model.py`` picks them by
@@ -20,6 +20,7 @@ from .attention import (gqa_attend, gqa_decode, gqa_init, mla_attend,
                         mla_decode, mla_init)
 from .layers import mlp, mlp_init, rmsnorm, rmsnorm_init
 from .moe import moe_ffn, moe_init
+from .rglru import rglru_cache_spec, rglru_decode, rglru_forward, rglru_init
 from .ssm import mamba2_cache_spec, mamba2_decode, mamba2_forward, mamba2_init
 
 Params = Dict[str, object]
@@ -43,14 +44,16 @@ def dense_block_apply(cfg, p: Params, x: torch.Tensor, cos, sin
                       ) -> Tuple[torch.Tensor, float]:
     """The training forward of one block (no cache): (x, aux loss), the aux
     loss 0.0, a number, so the dense step runs no operator for it."""
-    x = x + gqa_attend(p["attn"], rmsnorm(p["ln1"], x), cos, sin, causal=True)
+    x = x + gqa_attend(p["attn"], rmsnorm(p["ln1"], x), cos, sin, causal=True,
+                       window=cfg.window or None)
     return x + mlp(p["mlp"], rmsnorm(p["ln2"], x), activation=cfg.activation), 0.0
 
 
 def dense_block_prefill(cfg, p: Params, x: torch.Tensor, cos, sin
                         ) -> Tuple[torch.Tensor, Params]:
     a, cache = gqa_attend(p["attn"], rmsnorm(p["ln1"], x), cos, sin,
-                          causal=True, return_cache=True)
+                          causal=True, window=cfg.window or None,
+                          return_cache=True)
     x = x + a
     x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x), activation=cfg.activation)
     return x, cache
@@ -59,15 +62,17 @@ def dense_block_prefill(cfg, p: Params, x: torch.Tensor, cos, sin
 def dense_block_decode(cfg, p: Params, x: torch.Tensor, cache: Params, pos: int
                        ) -> Tuple[torch.Tensor, Params]:
     a, cache = gqa_decode(p["attn"], rmsnorm(p["ln1"], x), cache, pos,
-                          cfg.rope_theta)
+                          cfg.rope_theta, window=cfg.window or None)
     x = x + a
     x = x + mlp(p["mlp"], rmsnorm(p["ln2"], x), activation=cfg.activation)
     return x, cache
 
 
 def dense_cache_spec(cfg, batch: int, seq: int) -> Dict[str, Tuple[int, ...]]:
-    """One layer's KV cache shapes (the dense and moe families')."""
-    shape = (batch, seq, cfg.n_kv_heads, head_dim(cfg))
+    """One layer's KV cache shapes (the dense and moe families'; with a
+    local window, a ring of ``min(seq, window)`` positions)."""
+    S = min(seq, cfg.window) if cfg.window else seq
+    shape = (batch, S, cfg.n_kv_heads, head_dim(cfg))
     return {"k": shape, "v": shape}
 
 
@@ -196,6 +201,97 @@ def ssm_cache_spec(cfg, batch: int, seq: int) -> Dict[str, Tuple[int, ...]]:
     """One layer's conv window and SSM state: no sequence axis."""
     return mamba2_cache_spec(batch, cfg.d_model, cfg.ssm_state,
                              expand=cfg.ssm_expand)
+
+
+# ------------------------------------------------------------ hybrid group
+# RecurrentGemma's pattern: (recurrent, recurrent, local attention) groups,
+# each sub-block with its own gated MLP; the model runs the layers past the
+# last whole group as recurrent sub-blocks (``tail``).
+def _rec_sub_init(cfg, gen: torch.Generator, dtype) -> Params:
+    return {"ln1": rmsnorm_init(gen, cfg.d_model, dtype),
+            "rnn": rglru_init(gen, cfg.d_model, cfg.d_rnn, dtype),
+            "ln2": rmsnorm_init(gen, cfg.d_model, dtype),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, gated=True)}
+
+
+def _attn_sub_init(cfg, gen: torch.Generator, dtype) -> Params:
+    return {"ln1": rmsnorm_init(gen, cfg.d_model, dtype),
+            "attn": gqa_init(gen, cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
+                             head_dim(cfg), dtype),
+            "ln2": rmsnorm_init(gen, cfg.d_model, dtype),
+            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, gated=True)}
+
+
+def hybrid_group_init(cfg, gen: torch.Generator, dtype) -> Params:
+    return {"rec1": _rec_sub_init(cfg, gen, dtype),
+            "rec2": _rec_sub_init(cfg, gen, dtype),
+            "attn": _attn_sub_init(cfg, gen, dtype)}
+
+
+def _mlp_sub(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return x + mlp(p["mlp"], rmsnorm(p["ln2"], x), activation=cfg.activation)
+
+
+def _rec_sub_apply(cfg, p: Params, x: torch.Tensor) -> torch.Tensor:
+    return _mlp_sub(cfg, p, x + rglru_forward(p["rnn"], rmsnorm(p["ln1"], x)))
+
+
+def _rec_sub_prefill(cfg, p: Params, x: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Params]:
+    h, cache = rglru_forward(p["rnn"], rmsnorm(p["ln1"], x), return_state=True)
+    return _mlp_sub(cfg, p, x + h), cache
+
+
+def _rec_sub_decode(cfg, p: Params, x: torch.Tensor, cache: Params
+                    ) -> Tuple[torch.Tensor, Params]:
+    h, cache = rglru_decode(p["rnn"], rmsnorm(p["ln1"], x), cache)
+    return _mlp_sub(cfg, p, x + h), cache
+
+
+def hybrid_group_apply(cfg, p: Params, x: torch.Tensor, cos, sin
+                       ) -> Tuple[torch.Tensor, float]:
+    x = _rec_sub_apply(cfg, p["rec1"], x)
+    x = _rec_sub_apply(cfg, p["rec2"], x)
+    sp = p["attn"]
+    x = x + gqa_attend(sp["attn"], rmsnorm(sp["ln1"], x), cos, sin, causal=True,
+                       window=cfg.window)
+    return _mlp_sub(cfg, sp, x), 0.0
+
+
+def hybrid_group_prefill(cfg, p: Params, x: torch.Tensor, cos, sin
+                         ) -> Tuple[torch.Tensor, Params]:
+    cache = {}
+    x, cache["rec1"] = _rec_sub_prefill(cfg, p["rec1"], x)
+    x, cache["rec2"] = _rec_sub_prefill(cfg, p["rec2"], x)
+    sp = p["attn"]
+    a, cache["attn"] = gqa_attend(sp["attn"], rmsnorm(sp["ln1"], x), cos, sin,
+                                  causal=True, window=cfg.window,
+                                  return_cache=True)
+    return _mlp_sub(cfg, sp, x + a), cache
+
+
+def hybrid_group_decode(cfg, p: Params, x: torch.Tensor, cache: Params,
+                        pos: int) -> Tuple[torch.Tensor, Params]:
+    new = {}
+    x, new["rec1"] = _rec_sub_decode(cfg, p["rec1"], x, cache["rec1"])
+    x, new["rec2"] = _rec_sub_decode(cfg, p["rec2"], x, cache["rec2"])
+    sp = p["attn"]
+    a, new["attn"] = gqa_decode(sp["attn"], rmsnorm(sp["ln1"], x), cache["attn"],
+                                pos, cfg.rope_theta, window=cfg.window)
+    return _mlp_sub(cfg, sp, x + a), new
+
+
+def rec_cache_spec(cfg, batch: int, seq: int) -> Dict[str, tuple]:
+    """One recurrent sub-block's cache (a tail layer's): no sequence axis."""
+    return rglru_cache_spec(batch, cfg.d_rnn)
+
+
+def hybrid_cache_spec(cfg, batch: int, seq: int) -> Dict[str, Dict[str, tuple]]:
+    """One group's cache: the two recurrent sub-blocks' and the local
+    attention's K/V ring of ``min(seq, window)`` positions."""
+    return {"rec1": rec_cache_spec(cfg, batch, seq),
+            "rec2": rec_cache_spec(cfg, batch, seq),
+            "attn": dense_cache_spec(cfg, batch, seq)}
 
 
 # ------------------------------------------------------------ layer loops

@@ -148,9 +148,14 @@ class AdamW:
         if m is not m_flat:     # the plain version returns new tensors
             m_flat.copy_(m)
             v_flat.copy_(v)
+        # an f32 leaf of a model with leaves of another dtype is copied out
+        # of the flat vector: as a view it would keep all of it alive (one
+        # f32 copy of every parameter) until the next update
+        mixed = any(l.dtype != p.dtype for l in leaves_p)
         outs, off = [], 0
         for l in leaves_p:
-            outs.append(p[off:off + l.numel()].view(l.shape).to(l.dtype))
+            t = p[off:off + l.numel()].view(l.shape)
+            outs.append(t.clone() if mixed and l.dtype == p.dtype else t.to(l.dtype))
             off += l.numel()
         return tree_unflatten(outs, spec), {"m": state["m"], "v": state["v"],
                                             "count": count, "gnorm": gnorm}

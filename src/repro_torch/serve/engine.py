@@ -9,10 +9,14 @@ slots keep decoding until the batch drains.
 
 The cache is allocated at ``max_seq`` per layer, as the family's cache spec
 gives it.  A prefill leaf whose spec carries the sequence axis (K/V, MLA's
-c_kv/k_rope) is written into its first ``prompt_len`` positions, so decode
-step ``pos`` writes its own slot; any other leaf (the ssm family's conv
-window and state, constant in the sequence length) is copied whole, and its
-shape must be the spec's.
+c_kv/k_rope) is written into its first positions, as many as it holds (the
+prompt's, so decode step ``pos`` writes its own slot; a local window's
+ring of ``min(max_seq, window)`` positions arrives whole, rolled to slot
+``pos % window`` when the prompt is at least the window); any other leaf
+(the ssm family's conv window and state, the hybrid family's ``conv`` and
+``h``, constant in the sequence length) is copied whole, and its shape must
+be the spec's.  Nested leaves (a hybrid group's ``rec1``, ``rec2``,
+``attn``) are walked.
 (The reference's ``_grow_cache`` pads only 4-D leaves, and its prefill cache
 is stacked over layers and 5-D, so its decode steps overwrite the last
 prompt slot; that is not copied here.)
@@ -22,15 +26,14 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.models.model import (ModelConfig, cache_seq_axes,
-                                      init_cache, make_prefill_step,
-                                      make_serve_step)
+from repro_torch.models.model import (ModelConfig, cache_axes, init_cache,
+                                      make_prefill_step, make_serve_step)
 
 
 @dataclasses.dataclass
@@ -61,25 +64,32 @@ class ServeEngine:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _grow_cache(self, prefix: List[Dict[str, torch.Tensor]], plen: int
-                    ) -> List[Dict[str, torch.Tensor]]:
+    def _grow_cache(self, prefix: List[Dict[str, Any]], plen: int
+                    ) -> List[Dict[str, Any]]:
         """The prefill's per-layer cache (``plen`` positions) written into a
         zeroed cache of ``max_seq`` positions, leaf by leaf: a leaf with a
-        sequence axis into its first ``plen`` positions, any other whole."""
-        batch = next(iter(prefix[0].values())).shape[0]
-        cache = init_cache(self.cfg, batch, self.max_seq, self.device)
-        axes = cache_seq_axes(self.cfg)
-        for layer, pre in zip(cache, prefix):
-            for key, leaf in pre.items():
-                axis = axes[key]
-                if axis is None:
-                    if leaf.shape != layer[key].shape:
-                        raise ValueError(f"cache leaf {key!r}: prefill shape "
-                                         f"{tuple(leaf.shape)}, spec "
-                                         f"{tuple(layer[key].shape)}")
-                    layer[key].copy_(leaf)
+        sequence axis into its first positions, as many as it holds (``plen``,
+        or a whole window's ring), any other whole."""
+        leaf = prefix[0]
+        while isinstance(leaf, dict):
+            leaf = next(iter(leaf.values()))
+        cache = init_cache(self.cfg, leaf.shape[0], self.max_seq, self.device)
+
+        def grow(dst, pre, axes, path):
+            for key, src in pre.items():
+                if isinstance(src, dict):
+                    grow(dst[key], src, axes[key], f"{path}{key}.")
+                elif axes[key] is None:
+                    if src.shape != dst[key].shape:
+                        raise ValueError(f"cache leaf {path + key!r}: prefill shape "
+                                         f"{tuple(src.shape)}, spec "
+                                         f"{tuple(dst[key].shape)}")
+                    dst[key].copy_(src)
                 else:
-                    layer[key].narrow(axis, 0, plen).copy_(leaf)
+                    dst[key].narrow(axes[key], 0, src.shape[axes[key]]).copy_(src)
+
+        for layer, pre, axes in zip(cache, prefix, cache_axes(self.cfg)):
+            grow(layer, pre, axes, "")
         return cache
 
     @torch.inference_mode()

@@ -482,7 +482,7 @@ def test_serving_cost_defaults_to_h100_and_folds_names():
     assert normalize_arch("llama3_2_1b") == "llama3.2-1b"
     assert normalize_arch("tinyllama_1.1b") == "tinyllama-1.1b"
     with pytest.raises(KeyError):
-        normalize_arch("recurrentgemma_9b")
+        normalize_arch("seamless_m4t_large_v2")
     for arch in ARCHS:
         cost = serving_cost(arch)
         assert cost.hw == port_core.H100_SXM
