@@ -6,26 +6,25 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 from dtype, head dim, base pointers and strides alone, before the launch:
 
 * ``"wgmma"``, ``repro_torch/csrc/flash_attention_wgmma.cu``: bf16 with
-  both head dims multiples of 8 (q/k's ``D`` up to 192, v's ``D_v`` up to
-  128), 16-byte-aligned base pointers and b/h/s strides that are positive
-  multiples of 8 elements (what its TMA loads need); both products on the
-  tensor cores;
+  both head dims multiples of 8 up to 256 (head-dim buckets (64, 64),
+  (128, 128), (192, 128) and (256, 256): RecurrentGemma's 256 too),
+  16-byte-aligned base pointers and b/h/s strides that are positive
+  multiples of 8 elements (what its TMA loads need), with or without a
+  local ``window``; both products on the tensor cores;
 * ``"scalar"``, ``repro_torch/csrc/flash_attention.cu``: everything else, on
   the f32 CUDA cores.  f32 stays there because it must meet atol 2e-3, which
-  TF32 tensor cores do not; bf16 with an odd head dim, unaligned strides, a
-  head dim past the tensor-core kernel's (RecurrentGemma's 256) or a local
-  ``window`` goes there too.
+  TF32 tensor cores do not; bf16 with an odd head dim or unaligned strides
+  goes there too.
 
 ``window > 0`` keeps key ``k`` for query ``q`` only where ``q - k < window``
 (the reference's ``chunked_attention(window=)``, RecurrentGemma's local
-attention), with or without ``causal``; only the CUDA-core kernel takes it,
-and the tensor-core kernel's entry point refuses one.
+attention), with or without ``causal``; both kernels take it.
 
 q and k share one head dim ``D`` and v and the output have their own,
 ``D_v`` (DeepSeek-V2's MLA: 192 and 128); ``D <= 256`` and ``D_v <= 256``
 (``MAX_D``, ``MAX_D_V``: the CUDA-core kernel's limits; the tensor-core
-kernel's are ``WGMMA_MAX_D``, ``WGMMA_MAX_D_V``).  Past them the wrapper
-raises, where the reference pads D to a multiple of 128.
+kernel's, ``WGMMA_MAX_D``, ``WGMMA_MAX_D_V``, are the same).  Past them the
+wrapper raises, where the reference pads D to a multiple of 128.
 The scale is ``1/sqrt(D)``.
 
 A build or launch error of either kernel raises; nothing falls back to the
@@ -59,7 +58,7 @@ launches_by_variant = {"wgmma": 0, "scalar": 0}   # the same launches, per kerne
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_D, MAX_D_V = 256, 256   # q/k's and v's largest head dims: the CUDA-core kernel's
-WGMMA_MAX_D, WGMMA_MAX_D_V = 192, 128   # the tensor-core kernel's largest
+WGMMA_MAX_D, WGMMA_MAX_D_V = 256, 256   # the tensor-core kernel's largest
 _LIBS = {"scalar": ("flash_attention", "repro_flash_attention_fwd"),
          "wgmma": ("flash_attention_wgmma", "repro_flash_attention_wgmma_fwd")}
 
@@ -77,13 +76,12 @@ def _fn(variant: str):
     return fn, lib.repro_cuda_error_string
 
 
-def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             window: int = 0) -> str:
+def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``"wgmma"`` where the tensor-core kernel takes q, k, v, else
-    ``"scalar"``: from the window, dtype, head dims, base pointers and
-    strides only."""
+    ``"scalar"``: from dtype, head dims, base pointers and strides only
+    (both kernels take any ``window``)."""
     D, Dv = q.shape[-1], v.shape[-1]
-    if (window > 0 or q.dtype != torch.bfloat16 or D % 8 or Dv % 8 or D > WGMMA_MAX_D
+    if (q.dtype != torch.bfloat16 or D % 8 or Dv % 8 or D > WGMMA_MAX_D
             or Dv > WGMMA_MAX_D_V):
         return "scalar"
     for t in (q, k, v):
@@ -135,7 +133,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """
     _check(q, k, v)
     window = _window(window)
-    return _launch(_variant(q, k, v, window), q, k, v, causal, window)
+    return _launch(_variant(q, k, v), q, k, v, causal, window)
 
 
 def flash_attention_scalar(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

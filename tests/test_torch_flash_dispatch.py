@@ -8,6 +8,8 @@ shows the wrapper counts each launch once, under the kernel it chose, and
 raises on a launch error without trying the other kernel.
 """
 
+import re
+from pathlib import Path
 from types import SimpleNamespace
 
 import pytest
@@ -61,13 +63,13 @@ def _padded_rows(B, H, KH, S, D, pad, dtype=bf16):
     (lambda: _mla(1, 4, 64, 24, 16), "wgmma"),
     (lambda: _mla(1, 4, 64, 136, 128), "wgmma"),
     (lambda: _mla(4, 128, 512, 192, 128, f32), "scalar"),
-    (lambda: _mla(1, 4, 64, 200, 128), "scalar"),
-    (lambda: _mla(1, 4, 64, 192, 136), "scalar"),
+    (lambda: _mla(1, 4, 64, 200, 128), "wgmma"),
+    (lambda: _mla(1, 4, 64, 192, 136), "wgmma"),
     (lambda: _mla(1, 4, 64, 192, 12), "scalar"),
-    (lambda: _bhsd(1, 16, 1, 512, 256), "scalar"),
-    (lambda: _bshd_views(4, 16, 1, 512, 256), "scalar"),
-    (lambda: _mla(1, 4, 64, 256, 128), "scalar"),
-    (lambda: _mla(1, 4, 64, 192, 256), "scalar"),
+    (lambda: _bhsd(1, 16, 1, 512, 256), "wgmma"),
+    (lambda: _bshd_views(4, 16, 1, 512, 256), "wgmma"),
+    (lambda: _mla(1, 4, 64, 256, 128), "wgmma"),
+    (lambda: _mla(1, 4, 64, 192, 256), "wgmma"),
 ], ids=["bf16-d64", "bf16-d128", "bf16-d80", "bf16-bshd-view",
         "bf16-bshd-view-ragged-d80", "f32", "f32-bshd-view", "bf16-d12",
         "bf16-s-stride-68", "bf16-s-stride-72", "bf16-mla-192-128",
@@ -108,16 +110,17 @@ def _fake_launches(monkeypatch, fail=()):
 
 
 def test_head_dim_256_launches_the_cuda_core_kernel(monkeypatch):
-    """bf16 aligned inputs at head dim 256, past the tensor-core kernel's
-    buckets, launch the CUDA-core kernel (its host check would refuse them);
-    MLA's (192, 128) still launches the tensor-core kernel."""
+    """Head dim 256 launches the CUDA-core kernel in f32 only: bf16 aligned
+    inputs at q/k 256 (v 256 or 128) launch the tensor-core kernel's
+    (256, 256) bucket, as MLA's (192, 128) launches its own."""
     ran = _fake_launches(monkeypatch)
     ops.reset_launch_counts()
     flash_kernel.flash_attention(*_bshd_views(4, 16, 1, 64, 256))
     flash_kernel.flash_attention(*_mla(1, 4, 64, 256, 128))
+    flash_kernel.flash_attention(*_bshd_views(4, 16, 1, 64, 256, f32))
     flash_kernel.flash_attention(*_mla(1, 4, 64, 192, 128))
-    assert ran == ["scalar", "scalar", "wgmma"]
-    assert flash_kernel.launches_by_variant == {"wgmma": 1, "scalar": 2}
+    assert ran == ["wgmma", "wgmma", "scalar", "wgmma"]
+    assert flash_kernel.launches_by_variant == {"wgmma": 3, "scalar": 1}
     ops.reset_launch_counts()
 
 
@@ -170,3 +173,38 @@ def test_mla_output_has_the_v_head_dim_in_the_bshd_layout(monkeypatch):
     assert ran == ["wgmma", "wgmma"]
     assert flash_kernel.launches_by_variant == {"wgmma": 2, "scalar": 0}
     ops.reset_launch_counts()
+
+
+def test_wgmma_buckets_fit_in_shared_memory():
+    """Each head-dim bucket of the tensor-core kernel, its shared memory
+    recomputed from the constants of ``flash_attention_wgmma.cu``: Q's tile
+    of ``kBlockM`` rows, K/V tiles of ``block_n(Dv)`` keys, atoms of
+    ``kAtomCols`` columns, ``kMaxStages`` stages where they fit and 2
+    otherwise, the barriers and the alignment; each fits in ``kSmemLimit``,
+    the H100's 232,448 bytes a block.  The (64, 64), (128, 128) and
+    (192, 128) buckets keep their 128-key tiles and stages, and (256, 256)
+    takes 64-key tiles in 2 stages."""
+    src = (Path(flash_kernel.__file__).resolve().parent.parent / "csrc"
+           / "flash_attention_wgmma.cu").read_text()
+    c = {k: int(re.search(rf"constexpr (?:int|uint32_t) {k} = (\d+);", src)[1])
+         for k in ("kBlockM", "kMaxStages", "kSmemLimit", "kAtomCols")}
+    rule = re.search(r"int block_n\(int dv\) \{ return dv > (\d+) \? (\d+) : (\d+); \}", src)
+    row_bytes = int(re.search(r"atom_bytes\(int rows\) \{ return rows \* (\d+)u; \}", src)[1])
+
+    def block_n(dv):
+        return int(rule[2]) if dv > int(rule[1]) else int(rule[3])
+
+    def smem(dqk, dv, stages):
+        atoms_q, atoms_v = dqk // c["kAtomCols"], dv // c["kAtomCols"]
+        return (atoms_q * c["kBlockM"] * row_bytes
+                + stages * (atoms_q + atoms_v) * block_n(dv) * row_bytes
+                + 8 * (2 + 4 * stages) + 1024)
+
+    buckets = sorted({(int(a), int(b)) for a, b in re.findall(r"launch<(\d+), (\d+)>", src)})
+    got = {}
+    for dqk, dv in buckets:
+        stages = c["kMaxStages"] if smem(dqk, dv, c["kMaxStages"]) <= c["kSmemLimit"] else 2
+        got[(dqk, dv)] = (block_n(dv), stages, smem(dqk, dv, stages))
+        assert smem(dqk, dv, stages) <= c["kSmemLimit"] == 232_448
+    assert got == {(64, 64): (128, 3, 115_824), (128, 128): (128, 3, 230_512),
+                   (192, 128): (128, 2, 214_096), (256, 256): (64, 2, 197_712)}

@@ -263,8 +263,9 @@ def test_windowed_pairs_count_only_the_kept_keys():
 
 # --------------------------------------------------------- kernel plumbing
 def _cases():
-    """Inputs of both kernels: bf16 aligned at head dims 64 and 128 (the
-    tensor-core kernel's), f32, head dim 256 and an odd one."""
+    """Inputs of both kernels: bf16 aligned at head dims 64, 128, 80 and
+    256 (the tensor-core kernel's), f32 and an odd head dim (the CUDA-core
+    kernel's)."""
     def bshd(B, H, KH, S, D, dt=bf16):
         return tuple(torch.zeros(B, S, h, D, dtype=dt).transpose(1, 2)
                      for h in (H, KH, KH))
@@ -273,14 +274,37 @@ def _cases():
             bshd(1, 2, 1, 64, 12)]
 
 
-def test_variant_with_a_window_is_the_cuda_core_kernel():
-    """A window sends every input to the CUDA-core kernel; without one each
-    input's choice is what it was (window 0 is the default)."""
-    want = ["wgmma", "wgmma", "wgmma", "scalar", "scalar", "scalar"]
+def _fake_kernels(monkeypatch) -> list:
+    """The compiled kernels replaced by a fake that records (variant,
+    causal, window) per launch; every tensor pretends to lie on the card."""
+    calls = []
+
+    def fake(variant):
+        def fn(*args):
+            calls.append((variant, args[11], args[12]))
+            return 0
+        return fn, lambda err: b""
+
+    monkeypatch.setattr(flash_kernel, "_fn", fake)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    return calls
+
+
+def test_variant_with_a_window_is_the_cuda_core_kernel(monkeypatch):
+    """A window no longer chooses the kernel: only the CUDA-core kernel's
+    inputs (f32, an odd head dim) take it with a window, and the
+    tensor-core kernel's (bf16 aligned, head dims up to 256) keep theirs,
+    window 0 or not."""
+    want = ["wgmma", "wgmma", "wgmma", "scalar", "wgmma", "scalar"]
+    calls = _fake_kernels(monkeypatch)
     for (q, k, v), w in zip(_cases(), want):
         assert flash_kernel._variant(q, k, v) == w
-        assert flash_kernel._variant(q, k, v, 0) == w
-        assert flash_kernel._variant(q, k, v, window=8) == "scalar"
+        for window in (0, 8):
+            flash_kernel.flash_attention(q, k, v, window=window)
+            assert calls[-1] == (w, 1, window)
+    ops.reset_launch_counts()
 
 
 def _entry(source: str) -> str:
@@ -316,32 +340,27 @@ def test_both_entry_points_take_the_wrappers_arguments(source, monkeypatch):
 
 
 def test_tensor_core_entry_point_refuses_a_window():
-    """The tensor-core kernel has no window: its entry point returns an
-    error for ``window != 0`` before any other check, rather than ignore it."""
+    """The tensor-core kernel's entry point refuses only a negative window,
+    in its host check (no ``window != 0`` refusal is left), and hands the
+    window to the bucket's launch right after ``causal``."""
     text = (CSRC / "flash_attention_wgmma.cu").read_text()
     entry = text[text.index("int repro_flash_attention_wgmma_fwd("):]
     body = entry[entry.index("{") + 1:]
-    first = body.strip().splitlines()[0]
-    assert re.fullmatch(r"if \(window != 0\) return \(int\)cudaError\w+;", first)
+    check = body[:body.index("return (int)cudaErrorInvalidValue;")]
+    assert "window != 0" not in body
+    assert re.search(r"\|\| window < 0 \|\|", check)
+    call = re.search(r"bucket\(([^;]*)\);", body)[1]
+    args = [a.strip() for a in call.split(",")]
+    assert args[args.index("causal") + 1] == "window"
 
 
 def test_window_reaches_the_c_call_and_the_cuda_core_kernel(monkeypatch):
     """With the compiled kernels replaced by a fake: the window is the
-    argument after ``causal``, a windowed call launches ``"scalar"`` even
-    where the tensor-core kernel takes the inputs, and a negative window
-    raises before any launch."""
-    calls = []
-
-    def fake(variant):
-        def fn(*args):
-            calls.append((variant, args[11], args[12]))
-            return 0
-        return fn, lambda err: b""
-
-    monkeypatch.setattr(flash_kernel, "_fn", fake)
-    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda self: True))
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda device=None: SimpleNamespace(cuda_stream=0))
+    argument after ``causal`` of either kernel's C call, a windowed call
+    launches ``"wgmma"`` where the tensor-core kernel takes the inputs and
+    ``"scalar"`` where called so, and a negative window raises before any
+    launch."""
+    calls = _fake_kernels(monkeypatch)
     q, k, v = _cases()[0]
     ops.reset_launch_counts()
     flash_kernel.flash_attention(q, k, v)
@@ -350,9 +369,9 @@ def test_window_reaches_the_c_call_and_the_cuda_core_kernel(monkeypatch):
     flash_kernel.flash_attention_scalar(q, k, v, window=3)
     with pytest.raises(ValueError, match="window"):
         flash_kernel.flash_attention(q, k, v, window=-1)
-    assert calls == [("wgmma", 1, 0), ("scalar", 1, 8), ("scalar", 0, 2048),
+    assert calls == [("wgmma", 1, 0), ("wgmma", 1, 8), ("wgmma", 0, 2048),
                      ("scalar", 1, 3)]
-    assert flash_kernel.launches_by_variant == {"wgmma": 1, "scalar": 3}
+    assert flash_kernel.launches_by_variant == {"wgmma": 3, "scalar": 1}
     ops.reset_launch_counts()
 
 
@@ -697,19 +716,30 @@ def cuda():
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_windowed_kernel_matches_its_plain_version_on_the_card(cuda, causal, dtype):
-    """The CUDA-core kernel with a window (bf16 too: it never takes the
-    tensor-core kernel) against ``flash_attention_ref(window=)``, at head
-    dims 16 and 256, S around the window and past it."""
+    """Both kernels with a window against ``flash_attention_ref(window=)``:
+    ``ops.flash_attention`` (the tensor-core kernel in bf16, the CUDA-core
+    kernel in f32) and ``flash_attention_scalar``, at head dims 16 to 256
+    (q/k 256 with v 128 too), KH 1 and 2, S not a multiple of 64 or 128,
+    windows whose edge falls inside a 64-key tile (1, 63, 65, 300) and
+    windows of S or more."""
     g = torch.Generator(device=cuda).manual_seed(0)
     atol = {torch.float32: 2e-3, torch.bfloat16: 3e-2}[dtype]
-    for B, H, KH, S, D, window in ((2, 4, 1, 37, 16, 8), (1, 16, 1, 300, 256, 64),
-                                   (1, 4, 2, 130, 64, 1), (1, 8, 1, 200, 128, 256)):
-        q, k, v = (torch.randn(B, S, h, D, generator=g, device=cuda).to(dtype)
-                   .transpose(1, 2) for h in (H, KH, KH))
+    variant = "wgmma" if dtype == torch.bfloat16 else "scalar"
+    for B, H, KH, S, D, Dv, window in (
+            (2, 4, 1, 37, 16, 16, 8), (1, 16, 1, 300, 256, 256, 64),
+            (1, 4, 2, 130, 64, 64, 1), (1, 8, 1, 200, 128, 128, 256),
+            (1, 4, 1, 333, 256, 256, 1), (1, 4, 2, 333, 256, 256, 63),
+            (1, 4, 1, 333, 256, 256, 65), (1, 4, 2, 700, 256, 256, 300),
+            (1, 4, 1, 200, 256, 256, 200), (1, 4, 2, 200, 256, 256, 500),
+            (1, 4, 1, 333, 256, 128, 65), (1, 4, 2, 257, 192, 128, 63)):
+        q, k, v = (torch.randn(B, S, h, d, generator=g, device=cuda).to(dtype)
+                   .transpose(1, 2) for h, d in ((H, D), (KH, D), (KH, Dv)))
+        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
         before = dict(flash_kernel.launches_by_variant)
         got = ops.flash_attention(q, k, v, causal=causal, window=window)
-        assert flash_kernel.launches_by_variant["scalar"] == before["scalar"] + 1
-        want = ref.flash_attention_ref(q, k, v, causal=causal, window=window)
+        assert flash_kernel.launches_by_variant[variant] == before[variant] + 1
+        assert (got.float() - want.float()).abs().max() <= atol
+        got = flash_kernel.flash_attention_scalar(q, k, v, causal=causal, window=window)
         assert (got.float() - want.float()).abs().max() <= atol
 
 
